@@ -1,0 +1,27 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes an explicit ``device`` (default ``"cuda"``) and
+resolves it here: a CUDA device on a host without one raises instead of
+quietly running on the CPU, and a CUDA device switches off TF32 for float32
+matrix products (the parity contract forbids it: TF32 keeps about three
+decimal digits, the JAX reference computes in full float32).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`; raises if CUDA is absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                f"is False; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
+    return dev

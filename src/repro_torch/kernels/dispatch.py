@@ -1,0 +1,55 @@
+"""Backend names and padding helpers (port of ``repro.kernels.dispatch``).
+
+``BACKENDS`` keeps the reference's names so configs map one to one:
+
+  * ``reference``       — plain torch (the rank-1 register-read path)
+  * ``fused``           — the hand-written CUDA kernel (on CPU tensors its
+                          wrapper runs the kernel's plain version)
+  * ``fused_interpret`` — the kernel's plain version, on any device: the
+                          port's analogue of Pallas interpret mode
+  * ``sparse``          — event-driven datapath; not ported yet (rejected
+                          at config construction, see
+                          ``repro_torch.plasticity.base``)
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+LANE = 128
+
+BACKENDS = ("reference", "fused", "fused_interpret", "sparse")
+
+
+def resolve_backend(backend: str) -> tuple[bool, bool]:
+    """Map a backend name to the ``(use_kernel, interpret)`` pair."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+    if backend == "sparse":
+        return False, False
+    return backend != "reference", backend == "fused_interpret"
+
+
+def resolve_packed(packed_history: bool, *, depth: int,
+                   use_kernel: bool = True) -> bool:
+    """Single owner of the packed-vs-unpacked operand selection.
+
+    The packed word holds ``depth <= 8`` register bits; deeper histories keep
+    the bitplane operands (bit-identical, so the fallback is silent), and the
+    reference path always reads the unpacked registers it is defined on.
+    """
+    return bool(packed_history) and use_kernel and depth <= 8
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def pad_axis(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    """Zero-pad ``x`` along ``axis`` up to length ``n`` (no-op if equal)."""
+    pad = n - x.shape[axis]
+    if pad == 0:
+        return x
+    axis %= x.dim()
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]   # F.pad lists the last dim first
+    return F.pad(x, widths)

@@ -1,0 +1,58 @@
+"""The port stands alone: no file under src/repro_torch/, and not
+chip_smoke.py, imports jax or the JAX package; the entry points run on CUDA
+unless the caller passes device="cpu", and raise on a host without CUDA."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.engine import EngineConfig, init_engine, init_engine_population
+from repro_torch.device import resolve_device
+from repro_torch.serve import ServeConfig, Server, SessionStore
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_scan_sees_the_whole_port():
+    assert len(PORT_FILES) >= 20
+    assert ROOT / "src" / "repro_torch" / "kernels" / "itp_stdp" / "kernel.py" in PORT_FILES
+    assert {"torch"} <= _imported_roots(ROOT / "src" / "repro_torch" / "core" / "engine.py")
+
+
+def test_entry_points_default_to_cuda():
+    cfg = EngineConfig(n_pre=4, n_post=3)
+    entry = (lambda: init_engine(cfg), lambda: init_engine_population(cfg, 2),
+             lambda: SessionStore(cfg), lambda: Server(cfg, ServeConfig()))
+    if torch.cuda.is_available():
+        assert init_engine(cfg).w.device.type == "cuda"
+        assert SessionStore(cfg).device.type == "cuda"
+        return
+    for make in entry:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert init_engine(cfg, device="cpu").w.device.type == "cpu"
+    assert SessionStore(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_resolve_device_rejects_other_devices():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")

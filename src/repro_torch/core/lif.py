@@ -1,8 +1,9 @@
-"""LIF neuron, exact float path (port of ``repro.core.lif``).
+"""Neuron models (port of ``repro.core.lif``): the exact-float LIF step
+(paper eqs. 4-5) and the Izhikevich neuron of the 6-layer DCSNN (§IV-C).
 
-``lif_step`` is plain tensor arithmetic, as in the reference, where it does
-not reach the ``kernels/lif`` Pallas kernel.  The LLSMU fixed-point step and
-the Izhikevich neuron come with a later slice.
+Both are plain tensor arithmetic, as in the reference, where they do not
+reach the ``kernels/lif`` Pallas kernel.  The LLSMU fixed-point LIF step
+comes with a later slice (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -45,3 +46,52 @@ def lif_step(state: LIFState, i_in: torch.Tensor, p: LIFParams,
     spikes = v > p.v_th + v_th_offset
     v = torch.where(spikes, p.e_rest, v)
     return LIFState(v=v), spikes
+
+
+# ---------------------------------------------------------------------------
+# Izhikevich neuron (used by the 6-layer DCSNN in §IV-C)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class IzhikevichParams:
+    a: float = 0.02
+    b: float = 0.2
+    c: float = -65.0
+    d: float = 8.0
+    v_th: float = 30.0
+    dt: float = 1.0
+
+
+class IzhikevichState(NamedTuple):
+    v: torch.Tensor
+    u: torch.Tensor
+
+
+def izhikevich_init(shape, p: IzhikevichParams, *,
+                    device: torch.device | str | None = None) -> IzhikevichState:
+    v = torch.full(shape, p.c, dtype=torch.float32, device=device)
+    return IzhikevichState(v=v, u=p.b * v)
+
+
+def izhikevich_step(state: IzhikevichState, i_in: torch.Tensor, p: IzhikevichParams,
+                    v_th_offset: torch.Tensor | float = 0.0
+                    ) -> tuple[IzhikevichState, torch.Tensor]:
+    """One Euler step; ``v_th_offset`` is the per-neuron threshold term θ
+    (broadcast against ``v``).  Returns ``(state', spikes)``, spikes bool.
+
+    The operations run in the reference's order, each rounded to float32.
+    """
+    v, u = state.v, state.u
+    dv = 0.04 * v * v + 5.0 * v + 140.0 - u + i_in
+    du = p.a * (p.b * v - u)
+    v = v + p.dt * dv
+    u = u + p.dt * du
+    v_th = p.v_th + v_th_offset
+    spikes = v >= v_th
+    v = torch.where(spikes, p.c, v)
+    u = torch.where(spikes, u + p.d, u)
+    # clamp against Euler blow-up at large dt; the ceiling tracks the
+    # effective (homeostasis-raised) threshold
+    v = torch.clamp(v, min=-120.0)
+    v = torch.minimum(v, v_th) if isinstance(v_th, torch.Tensor) else torch.clamp(v, max=v_th)
+    return IzhikevichState(v=v, u=u), spikes

@@ -10,11 +10,36 @@
   * ``sparse``          — event-driven datapath; not ported yet (rejected
                           at config construction, see
                           ``repro_torch.plasticity.base``)
+
+The im2col layout helpers of ``itp_stdp_conv.ops`` re-export here lazily
+(PEP 562 ``__getattr__``, so importing ``dispatch`` from inside a kernel
+package never cycles), as the reference re-exports them: the models import
+this module instead of reaching into a kernel package.
 """
 from __future__ import annotations
 
+import importlib
+
 import torch
 import torch.nn.functional as F
+
+# name → defining module of the kernel-package re-exports; resolved on first
+# attribute access and cached in globals()
+_KERNEL_REEXPORTS = {
+    "im2col_1d": "repro_torch.kernels.itp_stdp_conv.ops",
+    "im2col_2d": "repro_torch.kernels.itp_stdp_conv.ops",
+    "im2col_words_1d": "repro_torch.kernels.itp_stdp_conv.ops",
+    "im2col_words_2d": "repro_torch.kernels.itp_stdp_conv.ops",
+}
+
+
+def __getattr__(name: str):
+    target = _KERNEL_REEXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(target), name)
+    globals()[name] = value
+    return value
 
 LANE = 128
 

@@ -131,7 +131,8 @@ def synapse_delta(pre_spike: torch.Tensor, post_spike: torch.Tensor,
                   pairing: str = "nearest",
                   compensate: bool = True,
                   use_kernel: bool = True,
-                  interpret: bool = False) -> torch.Tensor:
+                  interpret: bool = False,
+                  po2: Po2Pair | None = None) -> torch.Tensor:
     """Raw Δw ``(*lanes, n_pre, n_post)`` from registers: zero ``w``,
     ``eta=1`` and an unbounded clip through the same kernel."""
     zero_w = pre_bits.new_zeros((*pre_bits.shape[:-2], pre_bits.shape[-1],
@@ -139,7 +140,7 @@ def synapse_delta(pre_spike: torch.Tensor, post_spike: torch.Tensor,
     return weight_update_depth_major(
         zero_w, pre_spike, post_spike, pre_bits, post_bits, params,
         pairing=pairing, compensate=compensate, eta=1.0, w_min=float("-inf"),
-        w_max=float("inf"), use_kernel=use_kernel, interpret=interpret)
+        w_max=float("inf"), use_kernel=use_kernel, interpret=interpret, po2=po2)
 
 
 def synapse_delta_packed(pre_spike: torch.Tensor, post_spike: torch.Tensor,
@@ -150,7 +151,8 @@ def synapse_delta_packed(pre_spike: torch.Tensor, post_spike: torch.Tensor,
                          pairing: str = "nearest",
                          compensate: bool = True,
                          use_kernel: bool = True,
-                         interpret: bool = False) -> torch.Tensor:
+                         interpret: bool = False,
+                         po2: Po2Pair | None = None) -> torch.Tensor:
     """Raw Δw from packed words: the packed twin of :func:`synapse_delta`."""
     zero_w = torch.zeros((*pre_words.shape, post_words.shape[-1]),
                          dtype=torch.float32, device=pre_words.device)
@@ -158,4 +160,4 @@ def synapse_delta_packed(pre_spike: torch.Tensor, post_spike: torch.Tensor,
         zero_w, pre_spike, post_spike, pre_words, post_words, params,
         depth=depth, pairing=pairing, compensate=compensate, eta=1.0,
         w_min=float("-inf"), w_max=float("inf"), use_kernel=use_kernel,
-        interpret=interpret)
+        interpret=interpret, po2=po2)

@@ -1,7 +1,7 @@
 """One dispatch layer for the weight update (port of ``repro.plasticity.apply``).
 
-:func:`make_plan` resolves a config (``EngineConfig`` duck-type) and a
-device into a frozen :class:`UpdatePlan`: the rule object, the backend
+:func:`make_plan` resolves a config (``EngineConfig`` or ``SNNConfig``
+duck-type) and a device into a frozen :class:`UpdatePlan`: the rule object, the backend
 flags, the packed-readout selection, the effective compensation, and the
 po2 read vectors — computed once on the host and moved to the device, so
 the kernel and its plain version read the same bits.  Plans are cached per
@@ -11,8 +11,10 @@ static plan per trace.
 :meth:`UpdatePlan.update` is the dense engine update (fused kernel, the
 kernel's plain version for ``fused_interpret``, or the reference rank-1
 path plus clip); the session-word methods are the seam the serving layer
-rides.  The shard_map tile update, the SNN layer deltas and the sparse
-backend come with later slices.
+rides.  :meth:`UpdatePlan.fc_delta` / :meth:`UpdatePlan.conv_delta` are
+the batched SNN layer deltas (raw Δw: the layer owns eta, the batch
+normalisation, the clip and quantisation).  The shard_map tile update and
+the sparse backend come with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Any
 import torch
 
 from repro_torch.core.stdp import STDPParams
+from repro_torch.kernels.dispatch import (im2col_1d, im2col_2d, im2col_words_1d,
+                                          im2col_words_2d)
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
 from repro_torch.plasticity.base import LearningRule, resolve_rule_backend
 
@@ -67,6 +71,78 @@ class UpdatePlan:
                         compensate=self.compensate)
         return torch.clamp(w + self.eta * dw, self.w_min, self.w_max)
 
+    # -- batched SNN layer deltas ---------------------------------------
+
+    def fc_delta(self, pre_state: Any, post_state: Any, s_in: torch.Tensor,
+                 s_out: torch.Tensor) -> torch.Tensor:
+        """Batch-summed raw ``(fan_in, n_out)`` Δw of an fc layer.
+
+        The fc layer is the engine's dense synapse matrix replicated over the
+        batch.  The kernel backends make one kernel-1 launch with the batch
+        as the lane axis and sum the ``(B, fan_in, n_out)`` per-sample deltas
+        (the reference vmaps and sums); the reference backend contracts the
+        pair-gated magnitudes over the batch (the P = 1 case of the conv
+        patch formula).  Every per-sample term is an exact float32 value, so
+        both sum in float64, exactly, and round once: the two backends give
+        the same bits, as the conv kernel and its plain version do.
+        """
+        B = s_in.shape[0]
+        pre = s_in.reshape(B, -1)                        # (B, fan_in)
+        post = s_out.reshape(B, -1)                      # (B, n_out)
+        rule, p = self.rule, self.stdp
+        kw = dict(depth=self.depth, pairing=self.pairing, compensate=self.compensate)
+        if not self.use_kernel:
+            ltp = rule.magnitudes(pre_state, p.a_plus, p.tau_plus, **kw).reshape(B, -1)
+            ltd = rule.magnitudes(post_state, p.a_minus, p.tau_minus, **kw).reshape(B, -1)
+            # pair gate (§V-A): potentiate where post fired alone, depress
+            # where pre fired alone
+            f64 = torch.float64
+            dw_ltp = ((1.0 - pre) * ltp).to(f64).T @ post.to(f64)
+            dw_ltd = pre.to(f64).T @ ((1.0 - post) * ltd).to(f64)
+            return (dw_ltp - dw_ltd).to(torch.float32)
+        pre_read = rule.kernel_view(pre_state, packed=self.packed)
+        post_read = rule.kernel_view(post_state, packed=self.packed)
+        if self.packed:    # (B·n,) words → (B, n) lanes
+            pre_read, post_read = pre_read.reshape(B, -1), post_read.reshape(B, -1)
+        else:              # (rows, B·n) → (B, rows, n) lanes
+            pre_read = pre_read.reshape(pre_read.shape[0], B, -1).transpose(0, 1)
+            post_read = post_read.reshape(post_read.shape[0], B, -1).transpose(0, 1)
+        dw = rule.fused_delta(pre, post, pre_read, post_read, p, packed=self.packed,
+                              interpret=self.interpret, po2=self.po2, **kw)
+        return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+
+    def conv_delta(self, pre_state: Any, post_state: Any, patches: torch.Tensor,
+                   s_out: torch.Tensor, *, in_shape: tuple, kind: str, kernel: int,
+                   stride: int) -> torch.Tensor:
+        """Batch- and position-summed raw ``(K, C)`` Δw of a conv layer.
+
+        The timing views are gathered into the im2col layout of the spikes
+        (each patch element carries its source pixel's state): packed words
+        once as ``(M, K)`` uint8, row views as ``(rows, M, K)`` float32 (the
+        reference backend always reads the rows its oracle is defined on).
+        """
+        rule = self.rule
+        B = s_out.shape[0]
+        packed = self.use_kernel and self.packed
+        pre_read = rule.kernel_view(pre_state, packed=packed)
+        post_read = rule.kernel_view(post_state, packed=packed)
+        if packed:
+            im2col_w = im2col_words_2d if kind == "conv2d" else im2col_words_1d
+            pre_read = im2col_w(pre_read.reshape(B, *in_shape), kernel, stride)
+            pre_read = pre_read.reshape(-1, pre_read.shape[-1])          # (M, K)
+            post_read = post_read.reshape(-1, s_out.shape[-1])           # (M, C)
+        else:
+            im2col = im2col_2d if kind == "conv2d" else im2col_1d
+            rows = pre_read.shape[0]
+            pre_read = im2col(pre_read.reshape(rows * B, *in_shape), kernel, stride)
+            pre_read = pre_read.reshape(rows, -1, pre_read.shape[-1])    # (rows, M, K)
+            post_read = post_read.to(torch.float32).reshape(rows, -1, s_out.shape[-1])
+        return rule.patch_delta(
+            patches.reshape(-1, patches.shape[-1]), s_out.reshape(-1, s_out.shape[-1]),
+            pre_read, post_read, self.stdp, packed=packed, depth=self.depth,
+            pairing=self.pairing, compensate=self.compensate,
+            use_kernel=self.use_kernel, interpret=self.interpret, po2=self.po2)
+
     # -- session serialization (the serving layer's per-user state) -----
 
     def words_per_neuron(self) -> int:
@@ -93,12 +169,19 @@ class UpdatePlan:
 def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
     """Resolve a config into an :class:`UpdatePlan` on ``device``.
 
-    Cached: a config is a frozen dataclass, and a plan (its po2 tensors
-    included) is never mutated, so every caller may share it.
+    Duck-typed over ``EngineConfig`` and ``SNNConfig``: compensation resolves
+    through ``effective_compensate()`` where the config has it, else its
+    ``compensate`` property, and the clip window (``w_min``/``w_max``)
+    defaults to the SNN's fixed [0, 1].  Cached: a config is a frozen
+    dataclass, and a plan (its po2 tensors included) is never mutated, so
+    every caller may share it.
     """
     rule = cfg.learning_rule()
     use_kernel, interpret = resolve_rule_backend(rule, cfg.backend)
-    compensate = cfg.effective_compensate()
+    if hasattr(cfg, "effective_compensate"):
+        compensate = cfg.effective_compensate()
+    else:
+        compensate = cfg.compensate
     device = torch.device("cpu" if device is None else device)
     return UpdatePlan(
         rule=rule,
@@ -111,8 +194,8 @@ def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
         compensate=compensate,
         stdp=cfg.stdp,
         eta=cfg.eta,
-        w_min=cfg.w_min,
-        w_max=cfg.w_max,
+        w_min=getattr(cfg, "w_min", 0.0),
+        w_max=getattr(cfg, "w_max", 1.0),
         device=device,
         po2=po2_vectors(cfg.stdp, cfg.depth, compensate=compensate, device=device),
     )

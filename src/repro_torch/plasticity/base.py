@@ -4,12 +4,13 @@ A rule declares its timing state (``init_state`` / ``step``), its readout
 views and its magnitude read; everything backend-shaped — which datapath
 runs, packed or unpacked operands — lives in :mod:`repro_torch.plasticity.
 apply`.  The hooks between the plan and the kernels carry names of their
-own in the port (``kernel_view``, ``fused_update``, ``to_words``,
-``from_words_state``, ``read_magnitudes``): the reference's names are
-reserved by its lint rule R8 to ``repro/plasticity/``.
+own in the port (``kernel_view``, ``fused_update``, ``fused_delta``,
+``patch_delta``, ``to_words``, ``from_words_state``, ``read_magnitudes``):
+the reference's names are reserved by its lint rule R8 to
+``repro/plasticity/``.
 
-Only the intrinsic-timing rules (``itp``, ``itp_nocomp``) are ported in this
-slice.  The reference's other rules and the ``sparse`` backend are known
+Only the intrinsic-timing rules (``itp``, ``itp_nocomp``) are ported so
+far.  The reference's other rules and the ``sparse`` backend are known
 names that fail at config construction, naming the ROADMAP item that will
 port them (:data:`UNPORTED_RULES`, :data:`UNPORTED_BACKENDS`).
 """
@@ -71,6 +72,11 @@ class LearningRule(abc.ABC):
         return self.read_magnitudes(self.readout(state), amplitude, tau, depth=depth,
                                     pairing=pairing, compensate=compensate)
 
+    def last_spikes(self, state: Any) -> torch.Tensor:
+        """The newest spike of each neuron, ``(*lanes, n)`` float32 (the SNN
+        layers' lateral-inhibition input)."""
+        raise NotImplementedError(f"rule {self.name!r} has no last-spike readout")
+
     def check_pairing(self, pairing: str) -> None:
         if pairing not in ("nearest", "all"):
             raise ValueError(f"pairing must be 'nearest' or 'all', got {pairing!r}")
@@ -101,6 +107,25 @@ class LearningRule(abc.ABC):
                      po2: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         """Fused clipped weight update from :meth:`kernel_view` views."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
+
+    def fused_delta(self, pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                    pre_read: torch.Tensor, post_read: torch.Tensor, p: STDPParams,
+                    *, packed: bool, depth: int, pairing: str, compensate: bool,
+                    interpret: bool, po2: tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+        """Raw ``(*lanes, n_pre, n_post)`` Δw from :meth:`kernel_view` views,
+        every lane in one kernel launch (the SNN fc layers' per-sample delta)."""
+        raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
+
+    def patch_delta(self, pre_patches: torch.Tensor, post_spikes: torch.Tensor,
+                    pre_read: torch.Tensor, post_read: torch.Tensor, p: STDPParams,
+                    *, packed: bool, depth: int, pairing: str, compensate: bool,
+                    use_kernel: bool, interpret: bool,
+                    po2: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """Raw ``(K, C)`` conv Δw from ``(M, K)`` / ``(M, C)`` im2col spikes and
+        the timing views gathered into the same layout: ``(M, ·)`` uint8 words
+        (``packed``) or ``(rows, M, ·)`` float32 rows."""
+        raise NotImplementedError(f"rule {self.name!r} has no conv datapath")
 
     # -- dense reference update ----------------------------------------
     def delta(self, pre_state: Any, post_state: Any, pre_spikes: torch.Tensor,

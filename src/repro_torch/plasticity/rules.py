@@ -4,7 +4,9 @@
 State is the bitplane spike history; the timing difference is never
 computed: the register read is the update (eq. 2 / Fig. 3).  ``itp`` is
 compensated by default (eq. 18), ``itp_nocomp`` reads the raw po2 weights.
-The counter rules come with ROADMAP queue 1 item 10.
+The rule's hooks reach the dense kernels (``itp_stdp``: the engine update
+and the SNN fc layers' per-sample delta) and the conv kernel
+(``itp_stdp_conv``).  The counter rules come with ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -14,7 +16,11 @@ import torch
 
 from repro_torch.core import history as H
 from repro_torch.core.stdp import STDPParams, magnitudes_depth_major
-from repro_torch.kernels.itp_stdp.ops import weight_update_depth_major, weight_update_packed
+from repro_torch.kernels.itp_stdp.ops import (synapse_delta, synapse_delta_packed,
+                                              weight_update_depth_major,
+                                              weight_update_packed)
+from repro_torch.kernels.itp_stdp_conv.ops import (conv_synapse_delta,
+                                                   conv_synapse_delta_packed)
 from repro_torch.plasticity.base import LearningRule, register_rule
 
 
@@ -45,6 +51,10 @@ class HistoryRule(LearningRule):
         return magnitudes_depth_major(arr, amplitude, tau, pairing=pairing,
                                       compensate=compensate)
 
+    def last_spikes(self, state: H.SpikeHistory) -> torch.Tensor:
+        # the newest bit is planes[head]; no full register gather needed
+        return H.latest(state).to(torch.float32)
+
     # -- session serialization: one history word per neuron -------------
     def words_per_neuron(self) -> int:
         return 1
@@ -71,6 +81,24 @@ class HistoryRule(LearningRule):
                                         post_read, p, depth=depth, **kw)
         return weight_update_depth_major(w, pre_spike, post_spike, pre_read,
                                          post_read, p, **kw)
+
+    def fused_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
+                    *, packed, depth, pairing, compensate, interpret, po2):
+        kw = dict(pairing=pairing, compensate=compensate, interpret=interpret, po2=po2)
+        if packed:
+            return synapse_delta_packed(pre_spike, post_spike, pre_read, post_read, p,
+                                        depth=depth, **kw)
+        return synapse_delta(pre_spike, post_spike, pre_read, post_read, p, **kw)
+
+    # -- conv datapath: the itp_stdp_conv package ------------------------
+    def patch_delta(self, pre_patches, post_spikes, pre_read, post_read, p: STDPParams,
+                    *, packed, depth, pairing, compensate, use_kernel, interpret, po2):
+        kw = dict(pairing=pairing, compensate=compensate, use_kernel=use_kernel,
+                  interpret=interpret, po2=po2)
+        if packed:  # (M, K) / (M, C) uint8 register words
+            return conv_synapse_delta_packed(pre_patches, post_spikes, pre_read,
+                                             post_read, p, depth=depth, **kw)
+        return conv_synapse_delta(pre_patches, post_spikes, pre_read, post_read, p, **kw)
 
 
 ITP = register_rule(HistoryRule(name="itp", compensate=None))

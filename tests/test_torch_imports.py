@@ -1,6 +1,7 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports jax or the JAX package; the entry points run on CUDA
-unless the caller passes device="cpu", and raise on a host without CUDA."""
+chip_smoke.py, imports jax or the JAX package; the entry points (serving and
+training) run on CUDA unless the caller passes device="cpu", and raise on a
+host without CUDA."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,11 @@ import torch
 
 from repro_torch.core.engine import EngineConfig, init_engine, init_engine_population
 from repro_torch.device import resolve_device
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.cli import sampler_for
+from repro_torch.models.snn import fault_csnn, init_snn
 from repro_torch.serve import ServeConfig, Server, SessionStore
+from repro_torch.train.stdp_trainer import TrainerConfig, train_to_accuracy
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -34,6 +39,7 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 def test_scan_sees_the_whole_port():
     assert len(PORT_FILES) >= 20
     assert ROOT / "src" / "repro_torch" / "kernels" / "itp_stdp" / "kernel.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "models" / "snn.py" in PORT_FILES
     assert {"torch"} <= _imported_roots(ROOT / "src" / "repro_torch" / "core" / "engine.py")
 
 
@@ -50,6 +56,24 @@ def test_entry_points_default_to_cuda():
             make()
     assert init_engine(cfg, device="cpu").w.device.type == "cpu"
     assert SessionStore(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_training_entry_points_default_to_cuda():
+    cfg = fault_csnn(length=64)
+    tcfg = TrainerConfig(epochs=1, batches_per_epoch=1, batch=1, t_steps=2,
+                         assign_batches=1, eval_batches=1)
+    sampler, n_classes = sampler_for("5layer-csnn")
+    argv = ["--snn", "5layer-csnn", "--epochs", "1", "--batches-per-epoch", "1",
+            "--batch", "1", "--t-raster", "2", "--assign-batches", "1", "--eval-batches", "1"]
+    entry = (lambda: init_snn(cfg, 2), lambda: train_to_accuracy(cfg, sampler, n_classes, tcfg),
+             lambda: launch_train.main(argv))
+    if torch.cuda.is_available():
+        assert init_snn(cfg, 2).weights[0].device.type == "cuda"
+        return
+    for make in entry:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert init_snn(cfg, 2, device="cpu").weights[0].device.type == "cpu"
 
 
 def test_resolve_device_rejects_other_devices():

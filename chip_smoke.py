@@ -119,9 +119,12 @@ def _time_ms(fn, *, reps: int = 30, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_name: str, n: int = 50) -> float | None:
+def _device_ms(fn, kernel_name: str, *, launches_per_call: int = 1,
+               n: int = 50) -> float | None:
     """Device time per call of ``fn`` summed over the kernels whose names
-    contain ``kernel_name``, from a profiler trace, or None."""
+    contain ``kernel_name``, from a profiler trace; None unless the trace
+    holds all ``n × launches_per_call`` of their launches (a trace that
+    lost events would read low)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -135,7 +138,9 @@ def _device_ms(fn, kernel_name: str, n: int = 50) -> float | None:
             total_us += getattr(row, "device_time_total", 0.0) or getattr(
                 row, "cuda_time_total", 0.0)
             count += row.count
-    return total_us / n / 1e3 if count else None
+    _phase("profile", f"{kernel_name}: the trace holds {count} of "
+           f"{n * launches_per_call} launches")
+    return total_us / n / 1e3 if count == n * launches_per_call else None
 
 
 def _bound(lanes: int, n_pre: int, n_post: int, depth: int, packed: bool
@@ -262,16 +267,29 @@ def _profile_batch(cfg, scfg, load, device) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, seconds = _serve(cfg, scfg, load, device, threaded=False)
+    _report_profile(prof, seconds,
+                    f"one batch of {len(load)} requests x {scfg.t_steps} steps")
+
+
+def _report_profile(prof, seconds: float, what: str) -> None:
+    """Print the wall time, the device-busy share and the eight device
+    kernels that take the most time of one profiled run.  Only the device's
+    own events (kernels, copies, memsets) count: a host op's row repeats
+    the device time of the kernels it launched."""
+    import torch
+
     rows = []
     for row in prof.key_averages():
+        if row.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         dev_us = getattr(row, "self_device_time_total", 0.0) or getattr(
             row, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             rows.append((dev_us, row.count, row.key))
     busy_us = sum(r[0] for r in rows)
-    _phase("profile", f"one batch of {len(load)} requests x {scfg.t_steps} steps: wall "
-           f"{seconds * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} ms "
-           f"({busy_us / 1e4 / seconds:.2f}% of wall)")
+    busy = (f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / seconds:.2f}% of wall)" if rows
+            else "not measured (no device events in the trace)")
+    _phase("profile", f"{what}: wall {seconds * 1e3:.3f} ms (profiled), device busy {busy}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         _phase("profile", f"  {dev_us / 1e3:9.4f} ms device, {count:5d} calls: {key[:90]}")
 
@@ -452,7 +470,7 @@ def phase_conv_kernels(device) -> dict:
             ms = _time_ms(kern)
             plain_ms = _time_ms(plain, reps=10, inner=5)
             bound_ms, bound_by = _conv_bound(m, k, c, CONV_DEPTH, is_packed)
-            device_ms = _device_ms(kern, "conv_delta_")
+            device_ms = _device_ms(kern, "conv_delta_", launches_per_call=2)
             dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
             _phase("conv_kernels", f"{name} {layer} ({m}x{k}x{c}, depth {CONV_DEPTH}): "
                    f"{ms:.5f} ms/call (CUDA events), kernels alone {dev_txt} (profiler, "
@@ -572,7 +590,6 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
 def _profile_train_batch(cfg, tcfg, device) -> None:
     """Where one DCSNN training batch's time goes: wall time, device-busy
     share, and the device kernels that take the most time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.cli import sampler_for
@@ -585,18 +602,8 @@ def _profile_train_batch(cfg, tcfg, device) -> None:
         t0 = time.perf_counter()
         _run_batches(cfg, [batch], tcfg.batch, device)
         seconds = time.perf_counter() - t0
-    rows = []
-    for row in prof.key_averages():
-        dev_us = getattr(row, "self_device_time_total", 0.0) or getattr(
-            row, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, row.count, row.key))
-    busy_us = sum(r[0] for r in rows)
-    _phase("profile", f"one 6layer-dcsnn training batch ({tcfg.batch} x {tcfg.t_steps} steps, "
-           f"fused): wall {seconds * 1e3:.3f} ms (profiled), device busy "
-           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / seconds:.2f}% of wall)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
-        _phase("profile", f"  {dev_us / 1e3:9.4f} ms device, {count:5d} calls: {key[:90]}")
+    _report_profile(prof, seconds, f"one 6layer-dcsnn training batch ({tcfg.batch} x "
+                    f"{tcfg.t_steps} steps, fused)")
 
 
 def phase_train(device) -> dict:

@@ -62,48 +62,46 @@ class Prefetcher:
         self._q: collections.deque = collections.deque()
         self._depth = depth
         self._device = device
-        self._lock = threading.Lock()
+        # guards _q, _done, _error and _stop; both sides wait on it
+        self._cond = threading.Condition()
         self._done = False
-        self._error: BaseException | None = None
-        self._stop = threading.Event()
-        self._event = threading.Event()
-        self._space = threading.Event()
-        self._space.set()
+        self._error: Exception | None = None
+        self._stop = False
         self._thread = threading.Thread(target=self._fill, daemon=True)
         self._thread.start()
 
     def _fill(self):
         try:
             for item in self._it:
-                if self._stop.is_set():
-                    return
                 item = _to_device(item, self._device)
-                while not self._stop.is_set():
-                    with self._lock:
-                        if len(self._q) < self._depth:
-                            self._q.append(item)
-                            self._event.set()
-                            break
-                    self._space.clear()
-                    self._space.wait(timeout=0.1)
-        except BaseException as e:  # re-raised in the consumer by __next__
-            self._error = e
+                with self._cond:
+                    while len(self._q) >= self._depth and not self._stop:
+                        self._cond.wait()
+                    if self._stop:
+                        return
+                    self._q.append(item)
+                    self._cond.notify_all()
+        except Exception as e:  # re-raised in the consumer by __next__
+            with self._cond:
+                self._error = e
         finally:
-            self._done = True
-            self._event.set()
+            with self._cond:
+                self._done = True
+                self._cond.notify_all()
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the background thread and drop buffered batches.
 
         Safe at any point, including before the source is exhausted (a loop
         that stops early, or an exception unwinding through the consumer).
-        Idempotent; after it returns the fill thread has exited.
+        Idempotent; after it returns the fill thread has exited, unless the
+        source itself blocks for longer than ``timeout`` seconds.
         """
-        self._stop.set()
-        self._space.set()          # unblock a producer waiting for space
-        self._thread.join(timeout=timeout)
-        with self._lock:
+        with self._cond:
+            self._stop = True
             self._q.clear()
+            self._cond.notify_all()
+        self._thread.join(timeout=timeout)
 
     def __enter__(self):
         return self
@@ -115,15 +113,13 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        while True:
-            with self._lock:
-                if self._q:
-                    item = self._q.popleft()
-                    self._space.set()
-                    return item
-                if self._done:
-                    if self._error is not None:
-                        raise self._error
-                    raise StopIteration
-            self._event.clear()
-            self._event.wait(timeout=0.1)
+        with self._cond:
+            while not self._q and not self._done:
+                self._cond.wait()
+            if self._q:
+                item = self._q.popleft()
+                self._cond.notify_all()
+                return item
+            if self._error is not None:
+                raise self._error
+            raise StopIteration

@@ -25,13 +25,24 @@ from repro_torch.core.history import unpack_words
 from repro_torch.core.stdp import po2_read
 
 
+def gated_contraction(pre: torch.Tensor, post: torch.Tensor, ltp_mag: torch.Tensor,
+                      ltd_mag: torch.Tensor) -> torch.Tensor:
+    """``Σ_m ((1−pre)·ltp_mag)ᵀ·post − preᵀ·((1−post)·ltd_mag)`` over the M
+    rows of ``(M, K)`` pre / ltp and ``(M, C)`` post / ltd float32 operands:
+    potentiate where post fired alone, depress where pre fired alone, per
+    (K, C) synapse.  Contracted in float64 (exact for {0,1} spikes) and
+    rounded to float32 once."""
+    f64 = torch.float64
+    dw_ltp = ((1.0 - pre) * ltp_mag).to(f64).T @ post.to(f64)
+    dw_ltd = pre.to(f64).T @ ((1.0 - post) * ltd_mag).to(f64)
+    return (dw_ltp - dw_ltd).to(torch.float32)
+
+
 def itp_stdp_conv_delta_ref(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
                             pre_bits: torch.Tensor, post_bits: torch.Tensor,
                             po2_ltp: torch.Tensor, po2_ltd: torch.Tensor,
                             *, nearest: bool = True) -> torch.Tensor:
     """Reference semantics of the bitplane-fed conv kernel."""
-    pre = pre_patches.to(torch.float32)
-    post = post_spikes.to(torch.float32)
     pre_b = pre_bits.to(torch.float32)
     post_b = post_bits.to(torch.float32)
     if nearest:
@@ -40,12 +51,8 @@ def itp_stdp_conv_delta_ref(pre_patches: torch.Tensor, post_spikes: torch.Tensor
         post_b = post_b * (torch.cumsum(post_b, dim=0) == 1.0)
     ltp_mag = po2_read(po2_ltp.to(torch.float32), pre_b.movedim(0, -2))    # (M, K)
     ltd_mag = po2_read(po2_ltd.to(torch.float32), post_b.movedim(0, -2))  # (M, C)
-    # pair gate: potentiate where post fired alone, depress where pre fired
-    # alone — per (patch element, output channel) synapse, summed over rows
-    f64 = torch.float64
-    dw_ltp = ((1.0 - pre) * ltp_mag).to(f64).T @ post.to(f64)
-    dw_ltd = pre.to(f64).T @ ((1.0 - post) * ltd_mag).to(f64)
-    return (dw_ltp - dw_ltd).to(torch.float32)
+    return gated_contraction(pre_patches.to(torch.float32), post_spikes.to(torch.float32),
+                             ltp_mag, ltd_mag)
 
 
 def itp_stdp_conv_delta_packed_ref(pre_patches: torch.Tensor, post_spikes: torch.Tensor,

@@ -88,15 +88,14 @@ def add_serve_flags(ap: argparse.ArgumentParser) -> None:
     add_device_flag(ap)
 
 
-def add_train_flags(ap: argparse.ArgumentParser, *,
-                    batch_default: int | None = None) -> None:
+def add_train_flags(ap: argparse.ArgumentParser) -> None:
     """Epoch-level training and homeostasis knobs (``None`` defaults defer
     to the ``TrainerConfig`` / ``SNNConfig`` dataclass defaults)."""
     ap.add_argument("--epochs", type=int, default=None,
                     help="training epochs (each followed by a label-assignment "
                     "evaluation pass)")
     ap.add_argument("--batches-per-epoch", type=int, default=None, help="rasters per epoch")
-    ap.add_argument("--batch", type=int, default=batch_default,
+    ap.add_argument("--batch", type=int, default=None,
                     help="samples per raster batch")
     ap.add_argument("--t-raster", type=int, default=None,
                     help="simulation steps per raster")

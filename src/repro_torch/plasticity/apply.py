@@ -28,6 +28,7 @@ from repro_torch.core.stdp import STDPParams
 from repro_torch.kernels.dispatch import (im2col_1d, im2col_2d, im2col_words_1d,
                                           im2col_words_2d)
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
+from repro_torch.kernels.itp_stdp_conv.ref import gated_contraction
 from repro_torch.plasticity.base import LearningRule, resolve_rule_backend
 
 
@@ -94,12 +95,7 @@ class UpdatePlan:
         if not self.use_kernel:
             ltp = rule.magnitudes(pre_state, p.a_plus, p.tau_plus, **kw).reshape(B, -1)
             ltd = rule.magnitudes(post_state, p.a_minus, p.tau_minus, **kw).reshape(B, -1)
-            # pair gate (§V-A): potentiate where post fired alone, depress
-            # where pre fired alone
-            f64 = torch.float64
-            dw_ltp = ((1.0 - pre) * ltp).to(f64).T @ post.to(f64)
-            dw_ltd = pre.to(f64).T @ ((1.0 - post) * ltd).to(f64)
-            return (dw_ltp - dw_ltd).to(torch.float32)
+            return gated_contraction(pre, post, ltp, ltd)
         pre_read = rule.kernel_view(pre_state, packed=self.packed)
         post_read = rule.kernel_view(post_state, packed=self.packed)
         if self.packed:    # (B·n,) words → (B, n) lanes

@@ -7,6 +7,8 @@ differently, by one ulp, 6e-8 near t=1, and the 54 Hz sideband's phase
 2π·54·t magnifies that 340 times); min-max normalisation; the rate
 code's statistics (the two packages' random streams cannot match); the
 spike stream; and the prefetcher's order, error and shutdown behaviour."""
+import sys
+import threading
 import time
 
 import jax
@@ -147,6 +149,28 @@ def test_prefetcher_close_stops_an_unfinished_source():
     time.sleep(0.05)
     assert len(produced) == n
     pf.close()                                   # idempotent
+
+
+def test_prefetcher_hands_over_every_item_under_fast_thread_switching():
+    """Producer and consumer share one queue: with the interpreter switching
+    threads as often as it can, no item is lost, repeated or reordered, and
+    neither side waits on a wake-up that already happened."""
+    got = []
+
+    def consume():
+        with Prefetcher(iter(range(3000)), depth=2) as pf:
+            got.extend(pf)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        worker = threading.Thread(target=consume, daemon=True)
+        worker.start()
+        worker.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not worker.is_alive()
+    assert got == list(range(3000))
 
 
 def test_prefetcher_reraises_the_source_error():

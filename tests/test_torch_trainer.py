@@ -85,8 +85,8 @@ def _held_out(key, sampler, n_batches, tcfg):
     for _ in range(n_batches):
         key, k_data, k_enc = jax.random.split(key, 3)
         x, y = sampler(k_data, tcfg.batch)
-        out.append({"spikes": np.asarray(j_encode_batch(k_enc, x, tcfg.t_steps)),
-                    "labels": np.asarray(y)})
+        out.append({"spikes": np.array(j_encode_batch(k_enc, x, tcfg.t_steps)),
+                    "labels": np.array(y)})
     return out
 
 
@@ -97,13 +97,13 @@ class ReplaySource:
 
     def __init__(self, jcfg, tcfg, sampler):
         key = jax.random.PRNGKey(tcfg.seed)
-        self.weights = [np.asarray(w) for w in JS.init_snn(key, jcfg, tcfg.batch).weights]
+        self.weights = [np.array(w) for w in JS.init_snn(key, jcfg, tcfg.batch).weights]
         self.train, self.folds = [], []
         for epoch in range(tcfg.epochs):
             stream = j_spike_stream(jax.random.fold_in(key, 1000 + epoch), sampler,
                                     batch=tcfg.batch, t_steps=tcfg.t_steps,
                                     n_steps=tcfg.batches_per_epoch)
-            self.train.append([{k: np.asarray(v) for k, v in b.items()} for b in stream])
+            self.train.append([{k: np.array(v) for k, v in b.items()} for b in stream])
             k_assign, k_eval = jax.random.split(jax.random.fold_in(key, 2000 + epoch))
             self.folds.append({"assign": _held_out(k_assign, sampler, tcfg.assign_batches, tcfg),
                                "eval": _held_out(k_eval, sampler, tcfg.eval_batches, tcfg)})

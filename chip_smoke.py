@@ -21,7 +21,10 @@ printed on lines of its own:
              after; launches must equal batches × t_steps.  The same load on
              ``backend="reference"`` on the card must give equal post rasters
              and words and ``w`` within rtol=1e-5, atol=1e-6; one session
-             served solo and interleaved must be bit-identical;
+             served solo and interleaved must be bit-identical; then the same
+             load with the counter baseline ``rule="exact"`` (kernel
+             ``counter_stdp_update``, launches = batches × t_steps), fused ==
+             reference and solo == interleaved likewise, 1 B/neuron;
 5. conv_kernels — each im2col conv-delta kernel against its plain PyTorch
              version on the card at the four conv-layer shapes of the paper
              nets at batch 16 (DCSNN conv1/conv2, CSNN conv1/conv2), depth 7,
@@ -29,7 +32,18 @@ printed on lines of its own:
              both sum exactly in float64; packed ≡ unpacked and two runs
              bitwise; times from CUDA events and the profiler beside the byte
              bound and the plain version's time;
-6. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
+6. counter_kernels — the counter-rule kernels (update and conv delta)
+             against their plain versions on the card, for each window
+             (exact, linear, imstdp): the update at serving's 8×784×100 and
+             the fc layers' batch-16 shapes (784×100, 600×128, 480×64), the
+             conv delta at the four conv shapes, depth 7 plus one depth-255
+             case each; linear and imstdp updates bit-equal, exact within
+             rtol=atol=1e-6, conv deltas within atol=1e-4, rtol=1e-5; two runs
+             bitwise; every case timed (CUDA events, the profiler, the byte
+             bound, the plain version), and kernels 1 and 3 beside kernel 5 at
+             serving's shape and kernel 6 at DCSNN conv1 (the ITP-vs-counter
+             ratios);
+7. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
              at full width (28×28×1, conv 12@5×5, conv 24@3×3, fc 128; batch
              16, t_steps 30) on ``backend="fused"`` for 3 batches plus one
              evaluation, with conv-kernel launches = 2 × t_steps × batches and
@@ -39,10 +53,16 @@ printed on lines of its own:
              5layer-csnn at full width (512×2) for one batch, likewise; the
              2layer-snn (784×100) under the protocol of BENCH_accuracy.json
              (6 epochs × 8 batches × 16 × 30 steps, theta_plus 0.05, hard
-             WTA), whose final accuracy must be ≥ 0.25; one profiled DCSNN
-             batch;
-7. the ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line, and
-   the final ``{"ok": true, ...}`` line.
+             WTA), whose final accuracy must be ≥ 0.25; then the counter
+             baselines on the counter kernels: the 6layer-dcsnn with
+             ``rule="exact"`` (3 batches, fused == reference), one batch each of
+             ``linear`` on the 5layer-csnn and ``imstdp`` on the 6layer-dcsnn,
+             and the 2layer-snn protocol with ``exact``, whose final accuracy
+             must be ≥ 0.25 and within 0.05 of the ``itp`` run's; one profiled
+             DCSNN batch each for itp and exact;
+8. the ``kernels`` JSON line (kernels 1-4, and kernels 5-6 once per
+   window), the ``nvidia-smi`` name/power-limit line, and the final
+   ``{"ok": true, ...}`` line.
 
 Any mismatch or exception ends the script with a non-zero exit.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -67,23 +87,39 @@ SERVE_LOAD = dict(sessions=8, requests=32)
 SERVE_SCFG = dict(max_batch=8, t_steps=16, theta_plus=0.05)
 KERNEL_CASES = [  # (lanes, n_pre, n_post, depth)
     (8, 784, 100, 7), (8, 784, 100, 1), (8, 784, 100, 8), (1, 200, 72, 7)]
+COUNTER_WINDOWS = ("exact", "linear", "imstdp")
 REPLACES = {
     "itp_stdp_update_packed": "src/repro/kernels/itp_stdp/kernel.py:177",
     "itp_stdp_update": "src/repro/kernels/itp_stdp/kernel.py:108",
     "itp_stdp_conv_delta_packed": "src/repro/kernels/itp_stdp_conv/kernel.py:197",
     "itp_stdp_conv_delta": "src/repro/kernels/itp_stdp_conv/kernel.py:133",
+    **{f"counter_stdp_update[{w}]": "src/repro/kernels/itp_counter/kernel.py:172"
+       for w in COUNTER_WINDOWS},
+    **{f"counter_conv_delta[{w}]": "src/repro/kernels/itp_counter/kernel.py:330"
+       for w in COUNTER_WINDOWS},
 }
 SOURCES = {
     "itp_stdp_update_packed": "src/repro_torch/csrc/itp_stdp.cu",
     "itp_stdp_update": "src/repro_torch/csrc/itp_stdp.cu",
     "itp_stdp_conv_delta_packed": "src/repro_torch/csrc/itp_stdp_conv.cu",
     "itp_stdp_conv_delta": "src/repro_torch/csrc/itp_stdp_conv.cu",
+    **{k: "src/repro_torch/csrc/itp_counter.cu" for k in REPLACES if k.startswith("counter")},
 }
 # (M, K, C) of the paper nets' conv layers at batch 16: M = batch × positions
 CONV_CASES = {"DCSNN conv1": (9216, 25, 12), "DCSNN conv2": (1600, 108, 24),
               "CSNN conv1": (4048, 14, 8), "CSNN conv2": (976, 40, 16)}
 CONV_DEPTH = 7
 CONV_TOL = dict(atol=1e-4, rtol=1e-5)   # the reference's kernel-vs-oracle tolerance
+# (lanes, n_pre, n_post) of the dense counter update: serving's 8 sessions and
+# the paper nets' fc layers at batch 16 (the batch is the lane axis)
+COUNTER_FC_CASES = {"serving": (8, 784, 100), "2layer-snn fc": (16, 784, 100),
+                    "DCSNN fc": (16, 600, 128), "CSNN fc": (16, 480, 64)}
+COUNTER_DEPTH = 7
+COUNTER_DEEP = 255                      # the uint8 counter word's largest depth
+WINDOW_TOL = dict(rtol=1e-6, atol=1e-6)  # the reference's tolerance for the exp window
+# float32 operations of one window evaluation (the exp counted as one)
+WINDOW_OPS = {"exact": 4, "linear": 6, "imstdp": 1}
+ITP_GAP_TOL = 0.05                      # BENCH_accuracy.json's itp-vs-exact tolerance
 TRAIN_TOL = dict(rtol=1e-5, atol=1e-5)  # the reference's fused-vs-reference net tolerance
 DCSNN_TRAIN = dict(epochs=1, batches_per_epoch=3, batch=16, t_steps=30,
                    assign_batches=2, eval_batches=2, seed=0)
@@ -318,6 +354,49 @@ def _assert_states(a, b, *, exact: bool, what: str) -> None:
             raise SystemExit(f"{what}: step counters of {sid} differ")
 
 
+def _serve_parity(cfg, scfg, load, device, server, results, *, what: str) -> float:
+    """The same load on the reference backend (rasters and words exact, the
+    rest within rtol=1e-5, atol=1e-6) and one session served solo against
+    its interleaved run (bitwise); returns the reference's requests/s."""
+    import dataclasses
+
+    import numpy as np
+
+    ref_server, ref_results, ref_seconds = _serve(
+        dataclasses.replace(cfg, backend="reference"), scfg, load, device, threaded=True)
+    if not all(np.array_equal(a.post, b.post) for a, b in zip(results, ref_results)):
+        raise SystemExit(f"{what} fused vs reference: post rasters differ")
+    _assert_states(_states(server), _states(ref_server), exact=False,
+                   what=f"{what} fused vs reference")
+    solo_load = [r for r in load if r.sid == "user0"]
+    solo_server, solo_results, _ = _serve(cfg, scfg, solo_load, device, threaded=False)
+    inter = [r for r in results if r.sid == "user0"]
+    if not all(np.array_equal(a.post, b.post) for a, b in zip(inter, solo_results)):
+        raise SystemExit(f"{what} solo vs interleaved: post rasters differ")
+    _assert_states({"user0": server.store.peek("user0")},
+                   {"user0": solo_server.store.peek("user0")}, exact=True,
+                   what=f"{what} solo vs interleaved")
+    return len(load) / ref_seconds
+
+
+def _check_served(cfg, scfg, load, server, results) -> float:
+    """Shapes and finiteness of a served load; returns the mean post rate."""
+    import numpy as np
+    import torch
+
+    for r in results:
+        if r.post.shape != (scfg.t_steps, cfg.n_post) or r.post.dtype != np.uint8:
+            raise SystemExit(f"bad result shape {r.post.shape} {r.post.dtype}")
+    for s in _states(server).values():
+        if not (tuple(s.w.shape) == (cfg.n_pre, cfg.n_post) and torch.isfinite(s.w).all()):
+            raise SystemExit("non-finite or misshapen weights")
+        if any(x.dtype != torch.uint8 for x in (*s.pre_words, *s.post_words)):
+            raise SystemExit("session words are not uint8")
+    if server.store.state_bytes_per_session() != cfg.n_pre + cfg.n_post:
+        raise SystemExit("the plasticity cache is not 1 B/neuron")
+    return float(np.mean([r.post.mean() for r in results]))
+
+
 def phase_serve(device) -> dict:
     import dataclasses
 
@@ -325,6 +404,7 @@ def phase_serve(device) -> dict:
     import torch
 
     from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels.itp_counter import kernel as NK
     from repro_torch.kernels.itp_stdp import kernel as K
     from repro_torch.launch.serve import synthetic_load
     from repro_torch.serve import ServeConfig
@@ -334,78 +414,71 @@ def phase_serve(device) -> dict:
     load = synthetic_load(torch.Generator().manual_seed(1), t_steps=scfg.t_steps,
                           n_pre=cfg.n_pre, **SERVE_LOAD)
     counters = {"itp_stdp_update_packed": K.itp_stdp_update_packed,
-                "itp_stdp_update": K.itp_stdp_update}
+                "itp_stdp_update": K.itp_stdp_update,
+                "counter_stdp_update": NK.counter_stdp_update}
+    exact_cfg = dataclasses.replace(cfg, rule="exact")
     # warm-up (first CUDA calls of each path, the caching allocator): not counted
-    for packed in (True, False):
-        _serve(dataclasses.replace(cfg, packed_history=packed), scfg,
-               load[:scfg.max_batch], device, threaded=False)
+    for run_cfg in (cfg, dataclasses.replace(cfg, packed_history=False), exact_cfg):
+        _serve(run_cfg, scfg, load[:scfg.max_batch], device, threaded=False)
     launches = {}
     runs = {}
-    for name, packed in (("itp_stdp_update_packed", True), ("itp_stdp_update", False)):
-        run_cfg = dataclasses.replace(cfg, packed_history=packed)
+    for name, run_cfg in (("itp_stdp_update_packed", cfg),
+                          ("itp_stdp_update", dataclasses.replace(cfg, packed_history=False)),
+                          ("counter_stdp_update[exact]", exact_cfg)):
         for fn in counters.values():
             fn.launches = 0
         server, results, seconds = _serve(run_cfg, scfg, load, device, threaded=True)
         counts = {k: fn.launches for k, fn in counters.items()}
         expect = server.batches * scfg.t_steps
-        _phase("serve", f"fused packed_history={packed}: served {len(results)}/"
-               f"{len(load)} requests in {server.batches} batches, {seconds:.4f} s "
-               f"({len(load) / seconds:.2f} requests/s, "
+        _phase("serve", f"fused rule={run_cfg.rule} packed_history={run_cfg.packed_history}: "
+               f"served {len(results)}/{len(load)} requests in {server.batches} batches, "
+               f"{seconds:.4f} s ({len(load) / seconds:.2f} requests/s, "
                f"{len(load) * scfg.t_steps / seconds:.1f} sim-steps/s); launches {counts}")
-        if counts[name] != expect or counts[name] == 0:
-            raise SystemExit(f"{name}: {counts[name]} launches, expected {expect}")
-        launches[name] = counts[name]
-        runs[packed] = (server, results, seconds)
+        counted = counts[name.split("[")[0]]
+        if counted != expect or counted == 0 or sum(counts.values()) != counted:
+            raise SystemExit(f"{name}: launches {counts}, expected {expect} of {name} only")
+        launches[name] = counted
+        runs[name] = (server, results, seconds)
 
-    server, results, seconds = runs[True]
-    for r in results:
-        if r.post.shape != (scfg.t_steps, cfg.n_post) or r.post.dtype != np.uint8:
-            raise SystemExit(f"bad result shape {r.post.shape} {r.post.dtype}")
-    for s in _states(server).values():
-        if not (tuple(s.w.shape) == (cfg.n_pre, cfg.n_post) and torch.isfinite(s.w).all()):
-            raise SystemExit("non-finite or misshapen weights")
-    rate = float(np.mean([r.post.mean() for r in results]))
+    server, results, seconds = runs["itp_stdp_update_packed"]
+    rate = _check_served(cfg, scfg, load, server, results)
 
     # packed == unpacked, bit for bit, over the whole load
-    u_server, u_results, _ = runs[False]
+    u_server, u_results, _ = runs["itp_stdp_update"]
     if not all(np.array_equal(a.post, b.post) for a, b in zip(results, u_results)):
         raise SystemExit("packed vs unpacked: post rasters differ")
     _assert_states(_states(server), _states(u_server), exact=True, what="packed vs unpacked")
-
-    # the same load on the reference backend, on the card
-    ref_server, ref_results, ref_seconds = _serve(
-        dataclasses.replace(cfg, backend="reference"), scfg, load, device, threaded=True)
-    if not all(np.array_equal(a.post, b.post) for a, b in zip(results, ref_results)):
-        raise SystemExit("fused vs reference: post rasters differ")
-    _assert_states(_states(server), _states(ref_server), exact=False, what="fused vs reference")
-
-    # one session solo vs interleaved: bit-identical
-    solo_load = [r for r in load if r.sid == "user0"]
-    solo_server, solo_results, _ = _serve(cfg, scfg, solo_load, device, threaded=False)
-    inter = [r for r in results if r.sid == "user0"]
-    if not all(np.array_equal(a.post, b.post) for a, b in zip(inter, solo_results)):
-        raise SystemExit("solo vs interleaved: post rasters differ")
-    _assert_states({"user0": server.store.peek("user0")},
-                   {"user0": solo_server.store.peek("user0")}, exact=True,
-                   what="solo vs interleaved")
+    ref_rps = _serve_parity(cfg, scfg, load, device, server, results, what="itp")
     _profile_batch(cfg, scfg, load[:scfg.max_batch], device)
-    _phase("serve", f"parity OK: packed == unpacked (bitwise), fused == reference "
+    _phase("serve", f"itp parity OK: packed == unpacked (bitwise), fused == reference "
            f"(rasters and words exact, w/v/theta rtol=1e-5 atol=1e-6), solo == "
            f"interleaved (bitwise); mean post rate {rate:.4f}; reference backend "
-           f"{len(load) / ref_seconds:.2f} requests/s")
+           f"{ref_rps:.2f} requests/s")
+
+    # the counter baseline 'exact' on the same load
+    e_server, e_results, e_seconds = runs["counter_stdp_update[exact]"]
+    e_rate = _check_served(exact_cfg, scfg, load, e_server, e_results)
+    e_ref_rps = _serve_parity(exact_cfg, scfg, load, device, e_server, e_results,
+                              what="exact")
+    _phase("serve", f"exact parity OK: fused == reference, solo == interleaved (bitwise), "
+           f"1 B/neuron; mean post rate {e_rate:.4f}; {len(load) / e_seconds:.2f} "
+           f"requests/s fused, {e_ref_rps:.2f} on the reference backend")
     return {"launches": launches, "requests_per_s": len(load) / seconds,
-            "sim_steps_per_s": len(load) * scfg.t_steps / seconds}
+            "sim_steps_per_s": len(load) * scfg.t_steps / seconds,
+            "exact_requests_per_s": len(load) / e_seconds}
 
 
-def _conv_bound(m: int, k: int, c: int, depth: int, packed: bool) -> tuple[float, str]:
+def _conv_bound(m: int, k: int, c: int, depth: int, packed: bool,
+                window: str | None = None) -> tuple[float, str]:
     """Least time for one conv delta: the inputs read once (float32 spikes,
-    one history byte per element or 4·depth bytes of bitplanes, the po2
-    vectors) and the (K, C) float32 delta written once, over the HBM rate,
-    against the two contractions' multiply and add per term over the
-    float32 peak."""
+    one history or counter byte per element or 4·depth bytes of bitplanes,
+    the (2, depth) po2 vectors or window table) and the (K, C) float32 delta
+    written once, over the HBM rate, against the two contractions' multiply
+    and add per term (plus a counter ``window``'s evaluation per element)
+    over the float32 peak."""
     hist = (m * k + m * c) * (1 if packed else 4 * depth)
     nbytes = 4 * (m * k + m * c) + hist + 2 * 4 * depth + 4 * k * c
-    ops = 4 * m * k * c
+    ops = 4 * m * k * c + (WINDOW_OPS[window] * m * (k + c) if window else 0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -486,14 +559,184 @@ def phase_conv_kernels(device) -> dict:
     return report
 
 
+def _counter_bound(lanes: int, n_pre: int, n_post: int, depth: int,
+                   window: str) -> tuple[float, str]:
+    """Least time for one dense counter update: w read and written once, the
+    spikes and counter words read once, the (2, depth) table, over the HBM
+    rate, against 7 operations per synapse (gate, update, clip) plus two
+    window evaluations per synapse (the per-pair contract) over the float32
+    peak."""
+    syn = lanes * n_pre * n_post
+    neurons = lanes * (n_pre + n_post)
+    nbytes = 2 * 4 * syn + 4 * neurons + neurons + 2 * 4 * depth
+    ops = (7 + 2 * WINDOW_OPS[window]) * syn
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _timed(name: str, what: str, kern, plain, bound, kernel_name: str, *,
+           launches_per_call: int = 1) -> dict:
+    """Time a kernel call (CUDA events and the profiler) and its plain
+    version (``None``: not timed); print one line; return the numbers."""
+    ms = _time_ms(kern)
+    plain_ms = None if plain is None else _time_ms(plain, reps=10, inner=5)
+    device_ms = _device_ms(kern, kernel_name, launches_per_call=launches_per_call)
+    bound_ms, bound_by = bound
+    dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
+    plain_txt = "" if plain is None else f", plain {plain_ms:.5f} ms"
+    _phase("counter_kernels", f"{name} {what}: {ms:.5f} ms/call (CUDA events), kernel "
+           f"alone {dev_txt} (profiler), bound {bound_ms:.5f} ms ({bound_by}){plain_txt}")
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_counter_kernels(device) -> dict:
+    """Kernels 5-6 against their plain versions for every window: kernel 5 at
+    serving's and the fc layers' shapes, kernel 6 at the four conv shapes,
+    depth 7 and one depth-255 case each; run == run bitwise; every case
+    timed (the kernels line reports serving's shape and DCSNN conv1 at depth
+    7); beside them kernels 1 and 3 at equal shapes."""
+    import torch
+
+    from repro_torch.core.history import pack_bitplanes
+    from repro_torch.core.stdp import STDPParams
+    from repro_torch.kernels.itp_counter import kernel as NK
+    from repro_torch.kernels.itp_counter import ref as NR
+    from repro_torch.kernels.itp_counter.ops import counter_lut
+    from repro_torch.kernels.itp_stdp import kernel as K
+    from repro_torch.kernels.itp_stdp.ops import po2_vectors
+    from repro_torch.kernels.itp_stdp_conv import kernel as CK
+
+    p = STDPParams()
+    gen = torch.Generator().manual_seed(13)
+    report = {}
+
+    def counters(shape, depth):
+        return torch.randint(0, depth + 1, shape, generator=gen).to(torch.uint8).to(device)
+
+    def spikes(shape, rate):
+        return (torch.rand(shape, generator=gen) < rate).float().to(device)
+
+    dense = [(case, shape, COUNTER_DEPTH) for case, shape in COUNTER_FC_CASES.items()]
+    dense.append(("serving", COUNTER_FC_CASES["serving"], COUNTER_DEEP))
+    for case, (lanes, n_pre, n_post), depth in dense:
+        w = torch.rand((lanes, n_pre, n_post), generator=gen).to(device)
+        pre_s, post_s = spikes((lanes, n_pre), 0.3), spikes((lanes, n_post), 0.3)
+        pre_t, post_t = counters((lanes, n_pre), depth), counters((lanes, n_post), depth)
+        lut = counter_lut(p, depth, device)
+        for window in COUNTER_WINDOWS:
+            name = f"counter_stdp_update[{window}]"
+            kw = dict(depth=depth, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                      tau_plus=p.tau_plus, tau_minus=p.tau_minus, eta=1.0 / 16.0,
+                      w_min=0.0, w_max=1.0)
+            out = NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut, **kw)
+            again = NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut, **kw)
+            plain = NR.counter_stdp_update_ref(w, pre_s, post_s, pre_t, post_t, lut=lut, **kw)
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item()
+            bitwise = torch.equal(out, plain)
+            close = bitwise or (window == "exact" and torch.allclose(out, plain, **WINDOW_TOL))
+            ok = close and torch.equal(out, again) and bool(torch.isfinite(out).all())
+            what = f"{case} {lanes}x{n_pre}x{n_post} depth={depth}"
+            _phase("counter_kernels", f"{name} {what}: max|err|={err:.3g} (bit-equal "
+                   f"{bitwise}), run-to-run {torch.equal(out, again)} -> "
+                   f"{'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"counter kernel mismatch: {name} at {what}")
+            rep = report.setdefault(name, {"max_abs_err": 0.0})
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            t = _timed(name, what,
+                       lambda: NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut,
+                                                      **kw),
+                       lambda: NR.counter_stdp_update_ref(w, pre_s, post_s, pre_t, post_t,
+                                                          lut=lut, **kw),
+                       _counter_bound(lanes, n_pre, n_post, depth, window),
+                       "counter_stdp_kernel")
+            if case == "serving" and depth == COUNTER_DEPTH:
+                rep.update(t, shape=what)
+        if case == "serving" and depth == COUNTER_DEPTH:
+            # ITP against the counter datapath at one shape: kernel 1 on the
+            # same weights and spikes, fed random history words
+            words = [torch.randint(0, 256, t.shape, generator=gen, dtype=torch.uint8)
+                     .to(device) for t in (pre_t, post_t)]
+            po2 = po2_vectors(p, depth, device=device)
+            itp = _timed("itp_stdp_update_packed", f"{case} {lanes}x{n_pre}x{n_post} "
+                         f"depth={depth} (beside kernel 5)",
+                         lambda: K.itp_stdp_update_packed(w, pre_s, post_s, *words, *po2,
+                                                          depth=depth, eta=1.0 / 16.0),
+                         None, _bound(lanes, n_pre, n_post, depth, True),
+                         "itp_stdp_kernel")
+            _ratio_line("kernel 5 (exact) / kernel 1", report["counter_stdp_update[exact]"],
+                        itp)
+
+    conv = [(layer, shape, COUNTER_DEPTH) for layer, shape in CONV_CASES.items()]
+    conv.append(("DCSNN conv1", CONV_CASES["DCSNN conv1"], COUNTER_DEEP))
+    for layer, (m, k, c), depth in conv:
+        pre, post = spikes((m, k), 0.3), spikes((m, c), 0.25)
+        pre_t, post_t = counters((m, k), depth), counters((m, c), depth)
+        lut = counter_lut(p, depth, device)
+        for window in COUNTER_WINDOWS:
+            name = f"counter_conv_delta[{window}]"
+            kw = dict(depth=depth, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                      tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+            out = NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw)
+            again = NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw)
+            plain = NR.counter_conv_delta_ref(pre, post, pre_t, post_t, lut=lut, **kw)
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item()
+            bitwise = torch.equal(out, plain)
+            close = bool(torch.isfinite(out).all()) and torch.allclose(out, plain, **CONV_TOL)
+            ok = close and torch.equal(out, again)
+            what = f"{layer} M={m} K={k} C={c} depth={depth}"
+            _phase("counter_kernels", f"{name} {what}: max|err|={err:.3g} (bit-equal "
+                   f"{bitwise}), run-to-run {torch.equal(out, again)} -> "
+                   f"{'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"counter conv kernel mismatch: {name} at {what}")
+            rep = report.setdefault(name, {"max_abs_err": 0.0})
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            t = _timed(name, what,
+                       lambda: NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw),
+                       lambda: NR.counter_conv_delta_ref(pre, post, pre_t, post_t, lut=lut,
+                                                         **kw),
+                       _conv_bound(m, k, c, depth, True, window), "conv_delta_",
+                       launches_per_call=2)
+            if layer == "DCSNN conv1" and depth == COUNTER_DEPTH:
+                rep.update(t, shape=what)
+        if layer == "DCSNN conv1" and depth == COUNTER_DEPTH:
+            bits = [(torch.rand((depth, *x.shape), generator=gen) < 0.3).float().to(device)
+                    for x in (pre, post)]
+            words = [pack_bitplanes(b) for b in bits]
+            po2 = po2_vectors(p, depth, device=device)
+            itp = _timed("itp_stdp_conv_delta_packed", f"{layer} M={m} K={k} C={c} "
+                         f"depth={depth} (beside kernel 6)",
+                         lambda: CK.itp_stdp_conv_delta_packed(pre, post, *words, *po2,
+                                                               depth=depth),
+                         None, _conv_bound(m, k, c, depth, True), "conv_delta_",
+                         launches_per_call=2)
+            _ratio_line("kernel 6 (exact) / kernel 3", report["counter_conv_delta[exact]"],
+                        itp)
+    return report
+
+
+def _ratio_line(what: str, counter: dict, itp: dict) -> None:
+    dev = ("not measured" if counter["device_ms"] is None or itp["device_ms"] is None
+           else f"{counter['device_ms'] / itp['device_ms']:.3f}")
+    _phase("counter_kernels", f"ITP vs counter, {what}: {counter['ms'] / itp['ms']:.3f} "
+           f"(CUDA events), {dev} (device time)")
+
+
 def _train_counters():
+    from repro_torch.kernels.itp_counter import kernel as NK
     from repro_torch.kernels.itp_stdp import kernel as K
     from repro_torch.kernels.itp_stdp_conv import kernel as CK
 
     return {"itp_stdp_update_packed": K.itp_stdp_update_packed,
             "itp_stdp_update": K.itp_stdp_update,
             "itp_stdp_conv_delta_packed": CK.itp_stdp_conv_delta_packed,
-            "itp_stdp_conv_delta": CK.itp_stdp_conv_delta}
+            "itp_stdp_conv_delta": CK.itp_stdp_conv_delta,
+            "counter_stdp_update": NK.counter_stdp_update,
+            "counter_conv_delta": NK.counter_conv_delta}
 
 
 def _run_batches(cfg, batches, batch, device):
@@ -516,7 +759,8 @@ def _run_batches(cfg, batches, batch, device):
 def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     """Train ``net`` on the main path with the launch counters set to 0 just
     before and read just after; then the same batches with quantise=False on
-    fused packed, fused unpacked and reference for the parity checks."""
+    fused and reference (and, for the history rules, fused unpacked) for the
+    parity checks."""
     import dataclasses
 
     import torch
@@ -534,16 +778,19 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     steps = tcfg.batches_per_epoch * tcfg.t_steps * tcfg.epochs
-    want = {"itp_stdp_conv_delta_packed": conv_layers * steps,
-            "itp_stdp_update_packed": steps, "itp_stdp_conv_delta": 0,
-            "itp_stdp_update": 0}
+    counter_rule = cfg.rule in COUNTER_WINDOWS
+    conv_kernel, fc_kernel = (("counter_conv_delta", "counter_stdp_update") if counter_rule
+                              else ("itp_stdp_conv_delta_packed", "itp_stdp_update_packed"))
+    want = dict.fromkeys(counters, 0)
+    want.update({conv_kernel: conv_layers * steps, fc_kernel: steps})
     st = res["state"]
     levels = (1 << (cfg.w_bits - 1)) - 1
     finite = all(bool(torch.isfinite(w).all()) for w in st.weights)
     on_grid = all(bool(torch.allclose(w * levels, torch.round(w * levels), atol=1e-3))
                   for w in st.weights)
     samples = tcfg.batch * tcfg.batches_per_epoch * tcfg.epochs
-    _phase("train", f"{net} fused (full width, batch {tcfg.batch}, t_steps {tcfg.t_steps}, "
+    _phase("train", f"{net} rule={cfg.rule} fused (full width, batch {tcfg.batch}, "
+           f"t_steps {tcfg.t_steps}, "
            f"{tcfg.batches_per_epoch * tcfg.epochs} train batches + evaluation): "
            f"accuracy curve {res['accuracy_curve']}, eval rate {res['mean_eval_rates'][-1]:.4f}, "
            f"train {res['train_seconds']:.3f} s = {steps / res['train_seconds']:.1f} "
@@ -555,28 +802,33 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
         raise SystemExit(f"{net}: non-finite or off-grid weights, or a bad accuracy")
 
     # the same batches with quantise=False: fused packed / unpacked / reference
+    # (a counter rule has one word layout: packed_history does not apply)
     source = SamplerSource(sampler, tcfg)
     batches = [b["spikes"].to(device) for b in source.train_batches(0)]
     flt = dataclasses.replace(cfg, quantise=False)
     st_p, cnt_p = _run_batches(flt, batches, tcfg.batch, device)
-    for fn in counters.values():
-        fn.launches = 0
-    st_u, cnt_u = _run_batches(dataclasses.replace(flt, packed_history=False), batches,
-                               tcfg.batch, device)
-    unpacked_launches = counters["itp_stdp_conv_delta"].launches
+    unpacked_launches, same_u = None, True
+    if not counter_rule:
+        for fn in counters.values():
+            fn.launches = 0
+        st_u, cnt_u = _run_batches(dataclasses.replace(flt, packed_history=False), batches,
+                                   tcfg.batch, device)
+        unpacked_launches = counters["itp_stdp_conv_delta"].launches
+        if unpacked_launches != conv_layers * tcfg.t_steps * len(batches):
+            raise SystemExit(f"{net}: {unpacked_launches} unpacked conv launches")
+        same_u = (all(torch.equal(a, b) for a, b in zip(cnt_p, cnt_u))
+                  and all(torch.equal(a, b) for a, b in zip(st_p.weights, st_u.weights)))
     st_r, cnt_r = _run_batches(dataclasses.replace(flt, backend="reference"), batches,
                                tcfg.batch, device)
-    if unpacked_launches != conv_layers * tcfg.t_steps * len(batches):
-        raise SystemExit(f"{net}: {unpacked_launches} unpacked conv launches")
-    same_u = (all(torch.equal(a, b) for a, b in zip(cnt_p, cnt_u))
-              and all(torch.equal(a, b) for a, b in zip(st_p.weights, st_u.weights)))
     counts_ok = all(torch.equal(a, b) for a, b in zip(cnt_p, cnt_r))
     w_err = max((a - b).abs().max().item() for a, b in zip(st_p.weights, st_r.weights))
     w_ok = all(torch.allclose(a, b, **TRAIN_TOL) for a, b in zip(st_p.weights, st_r.weights))
     bitwise = all(torch.equal(a, b) for a, b in zip(st_p.weights, st_r.weights))
     spikes = sum(float(c.sum()) for c in cnt_p)
-    _phase("train", f"{net} quantise=False on the same {len(batches)} batches: packed == "
-           f"unpacked {same_u} ({unpacked_launches} unpacked conv launches); fused vs "
+    unpacked = ("n/a" if counter_rule
+                else f"{same_u} ({unpacked_launches} unpacked conv launches)")
+    _phase("train", f"{net} rule={cfg.rule} quantise=False on the same {len(batches)} "
+           f"batches: packed == unpacked {unpacked}; fused vs "
            f"reference: spike counts equal {counts_ok} ({spikes:.0f} output spikes), "
            f"weights max|err| {w_err:.3g} (bit-equal {bitwise})")
     if not (same_u and counts_ok and w_ok and spikes > 0):
@@ -603,46 +855,81 @@ def _profile_train_batch(cfg, tcfg, device) -> None:
         _run_batches(cfg, [batch], tcfg.batch, device)
         seconds = time.perf_counter() - t0
     _report_profile(prof, seconds, f"one 6layer-dcsnn training batch ({tcfg.batch} x "
-                    f"{tcfg.t_steps} steps, fused)")
+                    f"{tcfg.t_steps} steps, rule {cfg.rule}, fused)")
 
 
-def phase_train(device) -> dict:
+def _accuracy_protocol(rule: str, device) -> dict:
+    """The 2-layer SNN under BENCH_accuracy.json's protocol with ``rule``, the
+    launch counters set to 0 just before and read just after."""
     import torch
 
     from repro_torch.launch.cli import sampler_for
     from repro_torch.models import snn
     from repro_torch.train.stdp_trainer import TrainerConfig, train_to_accuracy
 
-    out = {}
-    dcsnn, dcsnn_t = snn.fmnist_dcsnn(backend="fused"), TrainerConfig(**DCSNN_TRAIN)
-    out["6layer-dcsnn"] = _train_net("6layer-dcsnn", dcsnn, dcsnn_t, device, conv_layers=2)
-    out["5layer-csnn"] = _train_net("5layer-csnn", snn.fault_csnn(backend="fused"),
-                                    TrainerConfig(**CSNN_TRAIN), device, conv_layers=2)
-
-    # the 2-layer SNN under BENCH_accuracy.json's protocol
     sampler, n_classes = sampler_for("2layer-snn")
-    cfg = snn.mnist_2layer(backend="fused", theta_plus=0.05, hard_wta=True)
+    cfg = snn.mnist_2layer(rule, backend="fused", theta_plus=0.05, hard_wta=True)
     tcfg = TrainerConfig(**ACCURACY_TRAIN)
     counters = _train_counters()
     for fn in counters.values():
         fn.launches = 0
     res = train_to_accuracy(cfg, sampler, n_classes, tcfg, device=device)
     torch.cuda.synchronize()
-    fc = counters["itp_stdp_update_packed"].launches
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fc_kernel = "counter_stdp_update" if rule in COUNTER_WINDOWS else "itp_stdp_update_packed"
     steps = tcfg.epochs * tcfg.batches_per_epoch * tcfg.t_steps
-    _phase("train", f"2layer-snn (784x100, fused, BENCH_accuracy protocol): accuracy curve "
-           f"{res['accuracy_curve']} (final {res['final_accuracy']:.4f}, floor "
-           f"{ACCURACY_FLOOR}), train {res['train_seconds']:.3f} s = "
+    _phase("train", f"2layer-snn (784x100, rule={rule}, fused, BENCH_accuracy protocol): "
+           f"accuracy curve {res['accuracy_curve']} (final {res['final_accuracy']:.4f}, "
+           f"floor {ACCURACY_FLOOR}), train {res['train_seconds']:.3f} s = "
            f"{steps / res['train_seconds']:.1f} sim-steps/s, "
            f"{tcfg.epochs * tcfg.batches_per_epoch * tcfg.batch / res['train_seconds']:.2f} "
-           f"samples/s; fc launches {fc}")
-    if fc != steps:
-        raise SystemExit(f"2layer-snn: {fc} fc launches, expected {steps}")
+           f"samples/s; fc launches {launches[fc_kernel]}")
+    if launches[fc_kernel] != steps or sum(launches.values()) != steps:
+        raise SystemExit(f"2layer-snn {rule}: launches {launches}, expected {steps} "
+                         f"of {fc_kernel} only")
     if not res["final_accuracy"] >= ACCURACY_FLOOR:
-        raise SystemExit(f"2layer-snn: final accuracy {res['final_accuracy']} < {ACCURACY_FLOOR}")
-    out["2layer-snn"] = {"accuracy_curve": res["accuracy_curve"],
-                         "sim_steps_per_s": steps / res["train_seconds"]}
+        raise SystemExit(f"2layer-snn {rule}: final accuracy {res['final_accuracy']} < "
+                         f"{ACCURACY_FLOOR}")
+    return {"accuracy_curve": res["accuracy_curve"], "final": res["final_accuracy"],
+            "sim_steps_per_s": steps / res["train_seconds"],
+            "launches": {fc_kernel: launches[fc_kernel]}}
+
+
+def phase_train(device) -> dict:
+    import dataclasses
+
+    from repro_torch.models import snn
+    from repro_torch.train.stdp_trainer import TrainerConfig
+
+    out = {}
+    dcsnn, dcsnn_t = snn.fmnist_dcsnn(backend="fused"), TrainerConfig(**DCSNN_TRAIN)
+    csnn_t = TrainerConfig(**CSNN_TRAIN)
+    out["6layer-dcsnn"] = _train_net("6layer-dcsnn", dcsnn, dcsnn_t, device, conv_layers=2)
+    out["5layer-csnn"] = _train_net("5layer-csnn", snn.fault_csnn(backend="fused"), csnn_t,
+                                    device, conv_layers=2)
+    out["2layer-snn"] = _accuracy_protocol("itp", device)
+
+    # the counter baselines: exact on the DCSNN (3 batches), one batch each of
+    # linear on the CSNN and imstdp on the DCSNN, exact under the protocol
+    dcsnn_exact = snn.fmnist_dcsnn("exact", backend="fused")
+    out["6layer-dcsnn exact"] = _train_net("6layer-dcsnn", dcsnn_exact, dcsnn_t, device,
+                                           conv_layers=2)
+    out["5layer-csnn linear"] = _train_net("5layer-csnn",
+                                           snn.fault_csnn("linear", backend="fused"),
+                                           csnn_t, device, conv_layers=2)
+    out["6layer-dcsnn imstdp"] = _train_net(
+        "6layer-dcsnn", snn.fmnist_dcsnn("imstdp", backend="fused"),
+        dataclasses.replace(dcsnn_t, batches_per_epoch=1), device, conv_layers=2)
+    out["2layer-snn exact"] = exact = _accuracy_protocol("exact", device)
+    itp = out["2layer-snn"]
+    gap = abs(itp["final"] - exact["final"])
+    _phase("train", f"2layer-snn itp vs exact: final {itp['final']:.4f} vs "
+           f"{exact['final']:.4f}, gap {gap:.4f} (tolerance {ITP_GAP_TOL}); curves "
+           f"identical {itp['accuracy_curve'] == exact['accuracy_curve']}")
+    if not gap <= ITP_GAP_TOL:
+        raise SystemExit(f"2layer-snn: itp vs exact gap {gap} > {ITP_GAP_TOL}")
     _profile_train_batch(dcsnn, dcsnn_t, device)
+    _profile_train_batch(dcsnn_exact, dcsnn_t, device)
     return out
 
 
@@ -678,15 +965,26 @@ def main() -> int:
     kernels = phase_kernels(device)
     serve = phase_serve(device)
     _phase("serve", f"slice load: {serve['requests_per_s']:.2f} requests/s, "
-           f"{serve['sim_steps_per_s']:.1f} sim-steps/s")
+           f"{serve['sim_steps_per_s']:.1f} sim-steps/s (itp); "
+           f"{serve['exact_requests_per_s']:.2f} requests/s (exact)")
     kernels.update(phase_conv_kernels(device))
+    kernels.update(phase_counter_kernels(device))
     train = phase_train(device)
     dcsnn = train["6layer-dcsnn"]
     # launches: each kernel's count from the run of its main path (serving for
-    # the dense kernels, DCSNN training for the conv kernels)
+    # the dense kernels, DCSNN training for the conv kernels; for the counter
+    # windows the exact serving load and DCSNN run, the linear CSNN run and
+    # the imstdp DCSNN run)
     launches = dict(serve["launches"],
                     itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
                     itp_stdp_conv_delta=dcsnn["unpacked_launches"])
+    for window, run in (("exact", "6layer-dcsnn exact"), ("linear", "5layer-csnn linear"),
+                        ("imstdp", "6layer-dcsnn imstdp")):
+        counts = train[run]["launches"]
+        launches[f"counter_conv_delta[{window}]"] = counts["counter_conv_delta"]
+        launches.setdefault(f"counter_stdp_update[{window}]", counts["counter_stdp_update"])
+    if not all(launches[name] > 0 for name in kernels):
+        raise SystemExit(f"a kernel of the path was never launched: {launches}")
     for net, r in train.items():
         _phase("train", f"{net}: {r['sim_steps_per_s']:.1f} sim-steps/s")
 

@@ -9,8 +9,11 @@ NamedTuples.  Nothing here imports JAX: the ``*_from_arrays`` functions
 take any object with the reference's attribute names whose leaves
 ``numpy.asarray`` accepts.
 
-The history ring's ``head`` is int64 in the port and int32 in the
-reference; the words, planes, weights and membranes keep their dtypes.
+A timing state is whatever the rule keeps: a ``SpikeHistory`` ring for the
+history rules (``planes``, ``head``) or an int32 last-spike counter array
+for the counter rules; the converters dispatch on it.  The history ring's
+``head`` is int64 in the port and int32 in the reference; the words,
+planes, counters, weights and membranes keep their dtypes.
 """
 from __future__ import annotations
 
@@ -33,14 +36,26 @@ def _np(x: torch.Tensor, dtype=None) -> np.ndarray:
     return out if dtype is None else out.astype(dtype)
 
 
-def _history(h, device) -> SpikeHistory:
+def _history(h, device):
+    """A timing state: a ``SpikeHistory`` from (``planes``, ``head``), or an
+    int32 counter array."""
+    if not hasattr(h, "planes"):
+        return _to(h, torch.int32, device)
     return SpikeHistory(planes=_to(h.planes, torch.uint8, device),
                         head=_to(h.head, torch.int64, device))
 
 
+def _history_np(h):
+    """``(planes, head)`` of a ``SpikeHistory``, or the int32 counter array."""
+    if isinstance(h, SpikeHistory):
+        return _np(h.planes), _np(h.head, np.int32)
+    return _np(h, np.int32)
+
+
 def engine_state_from_arrays(state, *, device: torch.device | str) -> EngineState:
     """``EngineState`` from the reference's (``w``, ``pre_hist``,
-    ``post_hist``, ``neurons.v``); histories are ``SpikeHistory`` rings."""
+    ``post_hist``, ``neurons.v``); timing states are ``SpikeHistory`` rings
+    or counter arrays."""
     return EngineState(w=_to(state.w, torch.float32, device),
                        pre_hist=_history(state.pre_hist, device),
                        post_hist=_history(state.post_hist, device),
@@ -48,11 +63,10 @@ def engine_state_from_arrays(state, *, device: torch.device | str) -> EngineStat
 
 
 def engine_state_to_numpy(state: EngineState) -> tuple:
-    """``(w, (planes, head), (planes, head), (v,))`` — the reference's
-    ``EngineState(w, SpikeHistory, SpikeHistory, LIFState)`` field order."""
-    return (_np(state.w),
-            (_np(state.pre_hist.planes), _np(state.pre_hist.head, np.int32)),
-            (_np(state.post_hist.planes), _np(state.post_hist.head, np.int32)),
+    """``(w, pre, post, (v,))`` — the reference's ``EngineState`` field
+    order; ``pre`` / ``post`` are ``(planes, head)`` of a ``SpikeHistory``
+    or an int32 counter array."""
+    return (_np(state.w), _history_np(state.pre_hist), _history_np(state.post_hist),
             (_np(state.neurons.v),))
 
 
@@ -87,8 +101,9 @@ def _neurons(n, device):
 
 def snn_state_from_arrays(state, *, device: torch.device | str) -> SNNState:
     """``SNNState`` from the reference's (``weights``, ``layers``): every
-    layer's neuron state (LIF ``v`` or Izhikevich ``v, u``), its two
-    ``SpikeHistory`` rings and θ; pool layers stay all-``None``."""
+    layer's neuron state (LIF ``v`` or Izhikevich ``v, u``), its two timing
+    states (``SpikeHistory`` rings or counter arrays) and θ; pool layers stay
+    all-``None``."""
     layers = []
     for lst in state.layers:
         if lst.neurons is None:
@@ -105,15 +120,15 @@ def snn_state_from_arrays(state, *, device: torch.device | str) -> SNNState:
 
 def snn_state_to_numpy(state: SNNState) -> tuple:
     """``(weights, layers)`` in the reference's field order: each layer is
-    ``(neurons, (planes, head), (planes, head), theta)``, neurons ``(v,)`` or
-    ``(v, u)``; a pool layer is ``(None, None, None, None)``."""
+    ``(neurons, pre, post, theta)``, neurons ``(v,)`` or ``(v, u)``, each
+    timing state ``(planes, head)`` or an int32 counter array; a pool layer
+    is ``(None, None, None, None)``."""
     layers = []
     for lst in state.layers:
         if lst.neurons is None:
             layers.append((None, None, None, None))
             continue
         layers.append((tuple(_np(x) for x in lst.neurons),
-                       (_np(lst.pre_hist.planes), _np(lst.pre_hist.head, np.int32)),
-                       (_np(lst.post_hist.planes), _np(lst.post_hist.head, np.int32)),
+                       _history_np(lst.pre_hist), _history_np(lst.post_hist),
                        None if lst.theta is None else _np(lst.theta)))
     return tuple(_np(w) for w in state.weights), tuple(layers)

@@ -1,10 +1,15 @@
-"""The ITP-STDP update on bitplane histories (port of ``repro.core.stdp``).
+"""The STDP rule family and the ITP-STDP update on bitplane histories (port
+of ``repro.core.stdp``).
 
-Only the parts the intrinsic-timing (history) rules use come across in this
-slice: the parameters, the po2 read vector, the nearest and all-to-all
-magnitude reads, the XOR pair gate and the dense reference update.  The
-explicit-Δt windows (``exact``, ``linear``, ``imstdp``) come with the
-counter rules.
+The explicit-Δt windows (paper eqs. 17-20: ``exact``, ``itp``,
+``itp_nocomp``, ``linear``, ``imstdp``) map a timing difference to a weight
+increment; the history part (the po2 read vector, the nearest and
+all-to-all magnitude reads, the XOR pair gate, the dense reference update)
+is what the intrinsic-timing rules run on.  The base-e and PWL windows round
+as IEEE float32 arithmetic does, one operation at a time (each step taken
+in float64 on float32 operands and rounded once; ``exp`` taken in float64
+and rounded once), so they give the same bits on any device; the counter
+rules' windows (``kernels/itp_counter/ref.py``) are built from them.
 
 Histories are ``(..., depth)`` {0,1} with k=0 the current step (the MSB of
 the paper's register picture); depth-major registers are ``(..., depth, N)``.
@@ -13,6 +18,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
+from typing import Callable
 
 import torch
 
@@ -33,6 +40,108 @@ class STDPParams:
         return dataclasses.replace(
             self, tau_plus=self.tau_plus * LN2, tau_minus=self.tau_minus * LN2)
 
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+def _quotient(x: torch.Tensor, c: float) -> torch.Tensor:
+    """The float32 quotient ``x / c``, correctly rounded.  The divisor is a
+    tensor: for a Python scalar PyTorch's CUDA kernel multiplies by the
+    reciprocal instead."""
+    c64 = torch.full_like(x, f32(c), dtype=torch.float64)
+    return (x.to(torch.float64) / c64).to(torch.float32)
+
+
+def _times(x: torch.Tensor, amplitude: float) -> torch.Tensor:
+    return (x.to(torch.float64) * f32(amplitude)).to(torch.float32)
+
+
+def exp_decay(dt: torch.Tensor, amplitude: float, tau: float) -> torch.Tensor:
+    """``A·exp(−dt/τ)``: the float32 quotient, its exp rounded once, times A."""
+    e = torch.exp(_quotient(-dt, tau).to(torch.float64)).to(torch.float32)
+    return _times(e, amplitude)
+
+
+def pwl_decay(dt: torch.Tensor, amplitude: float, width: float) -> torch.Tensor:
+    """``A·clip(1 − dt/width, 0, 1)``: the linear decay of [24]."""
+    x = (1.0 - _quotient(dt, width).to(torch.float64)).to(torch.float32)
+    return _times(torch.clamp(x, 0.0, 1.0), amplitude)
+
+
+# ---------------------------------------------------------------------------
+# Rule definitions: each maps dt = t_post - t_pre to Δw elementwise (positive
+# dt → LTP, negative → LTD).
+# ---------------------------------------------------------------------------
+
+def exact_stdp(dt: torch.Tensor, p: STDPParams) -> torch.Tensor:
+    """Original STDP, base-e exponential (paper eq. 17)."""
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    ltp = exp_decay(dt, p.a_plus, p.tau_plus)
+    ltd = -exp_decay(-dt, p.a_minus, p.tau_minus)
+    return torch.where(dt >= 0, ltp, ltd)
+
+
+def itp_stdp(dt: torch.Tensor, p: STDPParams, *, compensate: bool = True) -> torch.Tensor:
+    """ITP-STDP, base-2 exponential (paper eq. 20); ``compensate=True``
+    applies τ' = τ·ln2 first (eq. 18), which makes it :func:`exact_stdp`."""
+    if compensate:
+        p = p.compensated()
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    ltp = p.a_plus * torch.exp2(-dt / p.tau_plus)
+    ltd = -p.a_minus * torch.exp2(dt / p.tau_minus)
+    return torch.where(dt >= 0, ltp, ltd)
+
+
+def linear_stdp(dt: torch.Tensor, p: STDPParams, *,
+                window: float | None = None) -> torch.Tensor:
+    """PWL baseline of [24]: linear decay to zero at the window edge
+    (default 2τ, where ``A·(1 − dt/(2τ))`` crosses zero)."""
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    wp = window if window is not None else 2.0 * p.tau_plus
+    wm = window if window is not None else 2.0 * p.tau_minus
+    ltp = pwl_decay(dt, p.a_plus, wp)
+    ltd = -pwl_decay(-dt, p.a_minus, wm)
+    return torch.where(dt >= 0, ltp, ltd)
+
+
+def make_imstdp_lut(p: STDPParams, depth: int = 8) -> torch.Tensor:
+    """The precomputed LUT of [23]: index k ∈ [0, depth) holds LTP(k), index
+    depth+k holds LTD(−k)."""
+    k = torch.arange(depth, dtype=torch.float32)
+    return torch.cat([exp_decay(k, p.a_plus, p.tau_plus),
+                      -exp_decay(k, p.a_minus, p.tau_minus)])
+
+
+def imstdp(dt: torch.Tensor, p: STDPParams, *, depth: int = 8) -> torch.Tensor:
+    """ImSTDP baseline: floor |dt| onto the integer index grid and look it
+    up (the uncompensated timing error the paper criticises in §I)."""
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    lut = make_imstdp_lut(p, depth).to(dt.device)
+    k = torch.clamp(torch.floor(torch.abs(dt)).to(torch.int64), 0, depth - 1)
+    return lut[torch.where(dt >= 0, k, depth + k)]
+
+
+RULES: dict[str, Callable[..., torch.Tensor]] = {
+    "exact": exact_stdp,
+    "itp": itp_stdp,
+    "itp_nocomp": partial(itp_stdp, compensate=False),
+    "linear": linear_stdp,
+    "imstdp": imstdp,
+}
+
+
+def get_rule(name: str) -> Callable[..., torch.Tensor]:
+    try:
+        return RULES[name]
+    except KeyError as e:
+        raise ValueError(f"unknown STDP rule {name!r}; have {sorted(RULES)}") from e
+
+
+# ---------------------------------------------------------------------------
+# Power-of-two weight-update primitives on bitplane spike histories
+# ---------------------------------------------------------------------------
 
 def po2_weights(depth: int, tau: float, *, compensate: bool = True) -> torch.Tensor:
     """The constant po2 read vector ``[2^(-k/τ')]``, float32, on the host.

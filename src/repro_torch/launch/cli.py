@@ -53,7 +53,9 @@ def add_update_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
         "--rule", default="itp",
         choices=tuple(sorted({*plasticity.rule_names(), *plasticity.UNPORTED_RULES})),
-        help="learning rule; rules not ported yet fail naming their ROADMAP item")
+        help="learning rule: itp/itp_nocomp (intrinsic timing) or the counter "
+        "baselines exact/linear/imstdp; rules not ported yet fail naming their "
+        "ROADMAP item")
     ap.add_argument(
         "--backend", default="reference", choices=BACKENDS,
         help="weight-update datapath: plain torch reference, the fused CUDA "
@@ -71,7 +73,9 @@ def add_serve_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--n-post", type=int, default=16,
                     help="postsynaptic population size of each session's network")
     ap.add_argument("--depth", type=int, default=None,
-                    help="spike-history register depth (<= 8, the packed word width)")
+                    help="timing-register depth: <= 8 for the history rules' packed "
+                    "word (deeper histories run unpacked), <= 255 for the counter "
+                    "rules' uint8 last-spike counter")
     ap.add_argument("--max-batch", type=int, default=None,
                     help="serving lanes per step (batches are padded to this)")
     ap.add_argument("--t-steps", type=int, default=None,

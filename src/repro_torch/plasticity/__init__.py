@@ -1,7 +1,8 @@
 """Pluggable learning rules and the update dispatch layer (port of
 ``repro.plasticity``): ``make_plan`` / ``UpdatePlan`` / ``apply_update``
 own backend resolution and packed-readout selection; rules register by
-name.  Ported: ``itp`` and ``itp_nocomp``."""
+name.  Ported: ``itp``, ``itp_nocomp``, ``exact``, ``linear`` and
+``imstdp``."""
 
 from repro_torch.plasticity.apply import UpdatePlan, apply_update, make_plan
 from repro_torch.plasticity.base import (
@@ -17,4 +18,5 @@ from repro_torch.plasticity.base import (
     rule_names,
     validate_update_config,
 )
-from repro_torch.plasticity.rules import ITP, ITP_NOCOMP, HistoryRule
+from repro_torch.plasticity.rules import (EXACT, IMSTDP, ITP, ITP_NOCOMP, LINEAR,
+                                         CounterRule, HistoryRule)

@@ -2,9 +2,10 @@
 
 :func:`make_plan` resolves a config (``EngineConfig`` or ``SNNConfig``
 duck-type) and a device into a frozen :class:`UpdatePlan`: the rule object, the backend
-flags, the packed-readout selection, the effective compensation, and the
-po2 read vectors — computed once on the host and moved to the device, so
-the kernel and its plain version read the same bits.  Plans are cached per
+flags, the packed-readout selection, the effective compensation, the po2
+read vectors and the rule's own read table (the counter rules' imstdp
+window) — computed once on the host and moved to the device, so the kernel
+and its plain version read the same bits.  Plans are cached per
 ``(cfg, device)``, the port's counterpart of the reference building one
 static plan per trace.
 
@@ -50,6 +51,7 @@ class UpdatePlan:
     w_max: float
     device: torch.device
     po2: tuple[torch.Tensor, torch.Tensor] = dataclasses.field(compare=False)
+    table: torch.Tensor | None = dataclasses.field(default=None, compare=False)
 
     # -- dense engine update --------------------------------------------
 
@@ -66,7 +68,7 @@ class UpdatePlan:
                 self.stdp, packed=self.packed, depth=self.depth,
                 pairing=self.pairing, compensate=self.compensate, eta=self.eta,
                 w_min=self.w_min, w_max=self.w_max, interpret=self.interpret,
-                po2=self.po2)
+                po2=self.po2, table=self.table)
         dw = rule.delta(pre_state, post_state, pre_spikes, post_spikes, self.stdp,
                         depth=self.depth, pairing=self.pairing,
                         compensate=self.compensate)
@@ -85,7 +87,9 @@ class UpdatePlan:
         pair-gated magnitudes over the batch (the P = 1 case of the conv
         patch formula).  Every per-sample term is an exact float32 value, so
         both sum in float64, exactly, and round once: the two backends give
-        the same bits, as the conv kernel and its plain version do.
+        the same bits, as the conv kernel and its plain version do.  The
+        kernel view's shape picks the layout: ``(B·n,)`` words (packed
+        history words, counter words at any depth) or ``(rows, B·n)`` rows.
         """
         B = s_in.shape[0]
         pre = s_in.reshape(B, -1)                        # (B, fan_in)
@@ -98,13 +102,15 @@ class UpdatePlan:
             return gated_contraction(pre, post, ltp, ltd)
         pre_read = rule.kernel_view(pre_state, packed=self.packed)
         post_read = rule.kernel_view(post_state, packed=self.packed)
-        if self.packed:    # (B·n,) words → (B, n) lanes
+        words = pre_read.dim() == 1
+        if words:          # (B·n,) words → (B, n) lanes
             pre_read, post_read = pre_read.reshape(B, -1), post_read.reshape(B, -1)
         else:              # (rows, B·n) → (B, rows, n) lanes
             pre_read = pre_read.reshape(pre_read.shape[0], B, -1).transpose(0, 1)
             post_read = post_read.reshape(post_read.shape[0], B, -1).transpose(0, 1)
-        dw = rule.fused_delta(pre, post, pre_read, post_read, p, packed=self.packed,
-                              interpret=self.interpret, po2=self.po2, **kw)
+        dw = rule.fused_delta(pre, post, pre_read, post_read, p, packed=words,
+                              interpret=self.interpret, po2=self.po2, table=self.table,
+                              **kw)
         return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
 
     def conv_delta(self, pre_state: Any, post_state: Any, patches: torch.Tensor,
@@ -113,15 +119,17 @@ class UpdatePlan:
         """Batch- and position-summed raw ``(K, C)`` Δw of a conv layer.
 
         The timing views are gathered into the im2col layout of the spikes
-        (each patch element carries its source pixel's state): packed words
-        once as ``(M, K)`` uint8, row views as ``(rows, M, K)`` float32 (the
-        reference backend always reads the rows its oracle is defined on).
+        (each patch element carries its source pixel's state): word views
+        once as ``(M, K)`` uint8, row views as ``(rows, M, K)`` float32.  The
+        view's shape picks the layout: a history rule gives words only on a
+        kernel backend with packed histories (the reference backend reads the
+        rows its oracle is defined on); a counter rule always gives words.
         """
         rule = self.rule
         B = s_out.shape[0]
-        packed = self.use_kernel and self.packed
-        pre_read = rule.kernel_view(pre_state, packed=packed)
-        post_read = rule.kernel_view(post_state, packed=packed)
+        pre_read = rule.kernel_view(pre_state, packed=self.use_kernel and self.packed)
+        post_read = rule.kernel_view(post_state, packed=self.use_kernel and self.packed)
+        packed = pre_read.dim() == 1
         if packed:
             im2col_w = im2col_words_2d if kind == "conv2d" else im2col_words_1d
             pre_read = im2col_w(pre_read.reshape(B, *in_shape), kernel, stride)
@@ -137,7 +145,8 @@ class UpdatePlan:
             patches.reshape(-1, patches.shape[-1]), s_out.reshape(-1, s_out.shape[-1]),
             pre_read, post_read, self.stdp, packed=packed, depth=self.depth,
             pairing=self.pairing, compensate=self.compensate,
-            use_kernel=self.use_kernel, interpret=self.interpret, po2=self.po2)
+            use_kernel=self.use_kernel, interpret=self.interpret, po2=self.po2,
+            table=self.table)
 
     # -- session serialization (the serving layer's per-user state) -----
 
@@ -194,6 +203,7 @@ def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
         w_max=getattr(cfg, "w_max", 1.0),
         device=device,
         po2=po2_vectors(cfg.stdp, cfg.depth, compensate=compensate, device=device),
+        table=rule.read_table(cfg.stdp, cfg.depth, device=device),
     )
 
 

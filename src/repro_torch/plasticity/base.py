@@ -9,10 +9,11 @@ own in the port (``kernel_view``, ``fused_update``, ``fused_delta``,
 the reference's names are reserved by its lint rule R8 to
 ``repro/plasticity/``.
 
-Only the intrinsic-timing rules (``itp``, ``itp_nocomp``) are ported so
-far.  The reference's other rules and the ``sparse`` backend are known
-names that fail at config construction, naming the ROADMAP item that will
-port them (:data:`UNPORTED_RULES`, :data:`UNPORTED_BACKENDS`).
+Ported: the intrinsic-timing rules (``itp``, ``itp_nocomp``) and the
+counter rules (``exact``, ``linear``, ``imstdp``).  The reference's
+``mstdp`` rule and ``sparse`` backend are known names that fail at config
+construction, naming the ROADMAP item that will port them
+(:data:`UNPORTED_RULES`, :data:`UNPORTED_BACKENDS`).
 """
 from __future__ import annotations
 
@@ -26,9 +27,6 @@ from repro_torch.kernels.dispatch import BACKENDS, resolve_backend
 
 # reference rule / backend name → the ROADMAP queue-1 item that ports it
 UNPORTED_RULES = {
-    "exact": "ROADMAP queue 1 item 10 (counter rules)",
-    "linear": "ROADMAP queue 1 item 10 (counter rules)",
-    "imstdp": "ROADMAP queue 1 item 10 (counter rules)",
     "mstdp": "ROADMAP queue 1 item 12 (Rank1Rule and mstdp)",
 }
 UNPORTED_BACKENDS = {"sparse": "ROADMAP queue 1 item 11 (sparse backend)"}
@@ -94,9 +92,19 @@ class LearningRule(abc.ABC):
         raise NotImplementedError(f"rule {self.name!r} has no word serialization")
 
     # -- fused (kernel) datapath ---------------------------------------
+    def read_table(self, p: STDPParams, depth: int, *,
+                   device: torch.device | str | None = None) -> torch.Tensor | None:
+        """A per-delay table the rule's kernels read, built once per update
+        plan on the host (``None``: the rule reads none beyond the po2
+        vectors every plan carries)."""
+        return None
+
     def kernel_view(self, state: Any, *, packed: bool) -> torch.Tensor:
         """The state view the fused kernel consumes: ``(*lanes, n)`` uint8
-        words (``packed``) or ``(*lanes, rows, n)`` float32 rows."""
+        words or ``(*lanes, rows, n)`` float32 rows.  A rule whose kernels
+        read bitplanes or words takes ``packed`` as the choice; a rule with
+        one word layout returns its words whatever ``packed`` is, and the
+        plan follows the view's shape."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
 
     def fused_update(self, w: torch.Tensor, pre_spike: torch.Tensor,
@@ -104,15 +112,17 @@ class LearningRule(abc.ABC):
                      post_read: torch.Tensor, p: STDPParams, *, packed: bool,
                      depth: int, pairing: str, compensate: bool, eta: float,
                      w_min: float, w_max: float, interpret: bool,
-                     po2: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        """Fused clipped weight update from :meth:`kernel_view` views."""
+                     po2: tuple[torch.Tensor, torch.Tensor],
+                     table: torch.Tensor | None = None) -> torch.Tensor:
+        """Fused clipped weight update from :meth:`kernel_view` views; ``po2``
+        is the plan's po2 read vectors, ``table`` its :meth:`read_table`."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
 
     def fused_delta(self, pre_spike: torch.Tensor, post_spike: torch.Tensor,
                     pre_read: torch.Tensor, post_read: torch.Tensor, p: STDPParams,
                     *, packed: bool, depth: int, pairing: str, compensate: bool,
-                    interpret: bool, po2: tuple[torch.Tensor, torch.Tensor]
-                    ) -> torch.Tensor:
+                    interpret: bool, po2: tuple[torch.Tensor, torch.Tensor],
+                    table: torch.Tensor | None = None) -> torch.Tensor:
         """Raw ``(*lanes, n_pre, n_post)`` Δw from :meth:`kernel_view` views,
         every lane in one kernel launch (the SNN fc layers' per-sample delta)."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
@@ -121,7 +131,8 @@ class LearningRule(abc.ABC):
                     pre_read: torch.Tensor, post_read: torch.Tensor, p: STDPParams,
                     *, packed: bool, depth: int, pairing: str, compensate: bool,
                     use_kernel: bool, interpret: bool,
-                    po2: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                    po2: tuple[torch.Tensor, torch.Tensor],
+                    table: torch.Tensor | None = None) -> torch.Tensor:
         """Raw ``(K, C)`` conv Δw from ``(M, K)`` / ``(M, C)`` im2col spikes and
         the timing views gathered into the same layout: ``(M, ·)`` uint8 words
         (``packed``) or ``(rows, M, ·)`` float32 rows."""

@@ -6,7 +6,12 @@ only, so it runs on a GPU machine without JAX:
 The kernels are held against their plain PyTorch versions on the same card
 bit for bit: the dense kernels' plain versions sum in the kernel's order and
 round after every operation, as the kernels do; the conv kernels and their
-plain versions both take exact float64 sums and round once."""
+plain versions both take exact float64 sums and round once.  The counter
+kernels' exact window takes a double ``exp`` on each side (the kernel's and
+PyTorch's), held within rtol=atol=1e-6 (the reference's window tolerance);
+the linear and imstdp windows bit for bit; the counter conv delta at depth
+255, whose window values span more binades than a double's spare bits,
+within the conv tolerance."""
 import dataclasses
 
 import numpy as np
@@ -16,6 +21,9 @@ import torch
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.history import pack_bitplanes, unpack_words
 from repro_torch.core.stdp import STDPParams
+from repro_torch.kernels.itp_counter import kernel as NK
+from repro_torch.kernels.itp_counter import ref as NR
+from repro_torch.kernels.itp_counter.ops import counter_lut
 from repro_torch.kernels.itp_stdp import kernel as K
 from repro_torch.kernels.itp_stdp import ref as R
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
@@ -203,3 +211,120 @@ def test_conv_net_on_card_fused_bit_identical_to_reference(cuda, net):
     assert torch.equal(cp, cu) and torch.equal(cp, cr)
     for a, b, c in zip(sp.weights, su.weights, sr.weights):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# --- counter rules: fused update and conv delta (kernels 5-6) --------------
+
+WINDOWS = ("exact", "linear", "imstdp")
+WINDOW_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _counter_kw(depth, window):
+    p = STDPParams()
+    return dict(depth=depth, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+
+
+def _counters(shape, depth, g):
+    return torch.randint(0, depth + 1, shape, generator=g).to(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", ((8, 784, 100), (16, 600, 128), (2, 130, 70), (1, 33, 5)))
+@pytest.mark.parametrize("depth", (1, 7, 8, 255))
+@pytest.mark.parametrize("window", WINDOWS)
+def test_counter_kernel_matches_plain_version(cuda, shape, depth, window):
+    lanes, n_pre, n_post = shape
+    g = torch.Generator().manual_seed(depth)
+    w = torch.rand(shape, generator=g)
+    pre_s = (torch.rand((lanes, n_pre), generator=g) < 0.3).float()
+    post_s = (torch.rand((lanes, n_post), generator=g) < 0.3).float()
+    pre_t, post_t = _counters((lanes, n_pre), depth, g), _counters((lanes, n_post), depth, g)
+    w, pre_s, post_s, pre_t, post_t = (x.to(cuda) for x in (w, pre_s, post_s, pre_t, post_t))
+    lut = counter_lut(STDPParams(), depth, cuda)
+    kw = dict(_counter_kw(depth, window), eta=0.3, w_min=0.0, w_max=1.0)
+    out = NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut, **kw)
+    again = NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut, **kw)
+    plain = NR.counter_stdp_update_ref(w, pre_s, post_s, pre_t, post_t, lut=lut, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    if depth in (7, 8):
+        assert not torch.equal(out, w)
+    if window == "exact":
+        torch.testing.assert_close(out, plain, **WINDOW_TOL)
+    else:
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("shape", ((9216, 25, 12), (1600, 108, 24), (4048, 14, 8),
+                                   (976, 40, 16), (257, 33, 9), (1, 20, 16), (0, 5, 3)))
+@pytest.mark.parametrize("depth", (7, 255))
+@pytest.mark.parametrize("window", WINDOWS)
+def test_counter_conv_kernel_matches_plain_version(cuda, shape, depth, window):
+    m, kk, cc = shape
+    g = torch.Generator().manual_seed(depth)
+    pre = (torch.rand((m, kk), generator=g) < 0.3).float().to(cuda)
+    post = (torch.rand((m, cc), generator=g) < 0.25).float().to(cuda)
+    pre_t, post_t = _counters((m, kk), depth, g).to(cuda), _counters((m, cc), depth, g).to(cuda)
+    lut = counter_lut(STDPParams(), depth, cuda)
+    kw = _counter_kw(depth, window)
+    out = NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw)
+    again = NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw)
+    plain = NR.counter_conv_delta_ref(pre, post, pre_t, post_t, lut=lut, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (kk, cc)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, plain, **CONV_TOL)
+    if depth == 7 and window != "exact":    # few binades: both sums exact
+        assert torch.equal(out, plain)
+
+
+def test_counter_kernels_count_launches_and_reject_bad_operands(cuda):
+    g = torch.Generator().manual_seed(0)
+    w = torch.rand((2, 16, 8), generator=g).to(cuda)
+    s_pre, s_post = torch.ones((2, 16), device=cuda), torch.zeros((2, 8), device=cuda)
+    t_pre, t_post = _counters((2, 16), 7, g).to(cuda), _counters((2, 8), 7, g).to(cuda)
+    lut = counter_lut(STDPParams(), 7, cuda)
+    kw = _counter_kw(7, "imstdp")
+    NK.counter_stdp_update.launches = 0
+    NK.counter_conv_delta.launches = 0
+    NK.counter_stdp_update(w, s_pre, s_post, t_pre, t_post, lut, **kw)
+    NK.counter_conv_delta(s_pre, s_post, t_pre, t_post, lut, **kw)
+    assert (NK.counter_stdp_update.launches, NK.counter_conv_delta.launches) == (1, 1)
+    with pytest.raises(TypeError, match="uint8"):
+        NK.counter_stdp_update(w, s_pre, s_post, t_pre.float(), t_post, lut, **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        NK.counter_conv_delta(s_pre, s_post.cpu(), t_pre, t_post, lut, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        NK.counter_stdp_update(w, s_pre, s_post, t_pre, t_post, lut[:, :3], **kw)
+    with pytest.raises(ValueError, match="depth"):
+        NK.counter_conv_delta(s_pre, s_post, t_pre, t_post,
+                              counter_lut(STDPParams(), 300, cuda), **dict(kw, depth=300))
+    assert (NK.counter_stdp_update.launches, NK.counter_conv_delta.launches) == (1, 1)
+
+
+@pytest.mark.parametrize("net,rule", (("6layer-dcsnn", "exact"), ("5layer-csnn", "linear"),
+                                      ("2layer-snn", "imstdp")))
+def test_counter_net_on_card_fused_matches_reference(cuda, net, rule):
+    """Each layer launches its counter kernel once per step; fused and
+    reference runs agree on every spike, and on the weights within the
+    reference's net tolerance."""
+    cfg = TS.PAPER_NETWORKS[net](rule, backend="fused", quantise=False)
+    t_steps = 12
+    g = torch.Generator().manual_seed(0)
+    raster = (torch.rand((t_steps, 4, int(np.prod(cfg.input_shape))), generator=g) < 0.3)
+    raster = raster.to(torch.uint8).to(cuda)
+    runs = {}
+    for backend in ("fused", "reference"):
+        run_cfg = dataclasses.replace(cfg, backend=backend)
+        st = TS.init_snn(run_cfg, 4, generator=torch.Generator().manual_seed(1), device=cuda)
+        NK.counter_conv_delta.launches = 0
+        NK.counter_stdp_update.launches = 0
+        runs[backend] = TS.run_snn(st, raster, run_cfg)
+        if backend == "fused":
+            conv = sum(spec.kind.startswith("conv") for spec in cfg.layers)
+            assert NK.counter_conv_delta.launches == conv * t_steps
+            assert NK.counter_stdp_update.launches == t_steps
+    (sf, cf), (sr, cr) = runs["fused"], runs["reference"]
+    assert cf.sum() > 0 and torch.equal(cf, cr)
+    for a, b in zip(sf.weights, sr.weights):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -197,5 +197,5 @@ def test_launcher_serves_on_cpu(capsys):
     assert "plasticity cache: 40 B/session" in out
     with pytest.raises(SystemExit):
         launcher.main(["--device", "cpu", "--rule", "bogus"])
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 10"):
-        launcher.main(["--device", "cpu", "--rule", "exact"])
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 12"):
+        launcher.main(["--device", "cpu", "--rule", "mstdp"])

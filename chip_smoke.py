@@ -43,7 +43,27 @@ printed on lines of its own:
              bound, the plain version), and kernels 1 and 3 beside kernel 5 at
              serving's shape and kernel 6 at DCSNN conv1 (the ITP-vs-counter
              ratios);
-7. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
+7. side_numerics — the paper's hardware numerics on their kernels (7-10):
+             the DCSNN conv1 population (16 × 6,912 neurons, 24×24×12 at
+             batch 16, ``LIFParams()``) for 30 steps through
+             ``lif_step_kernel`` (kernel ``lif_update``) and through
+             ``lif_step_llsmu`` from ``lif_fixed_init`` (kernel
+             ``llsmu_multiply``, frac_bits 8, n_bits 4), each step
+             ``torch.equal`` to the same step on the plain versions, 30
+             launches each; the ISI histogram of the fixed-point raster and
+             the history depth it selects (the paper's is 7); 3 ITP-AdamW
+             steps (``po2_update=True``) on a tree with the leaf shapes of
+             qwen3-0.6b (2 of its 28 layers, a cut that bounds chip time;
+             float32, about 187 M parameters), kernels ``po2_encode`` and
+             ``po2_decode`` once per leaf per step, parameters and moments
+             ``torch.equal`` to the same steps on the plain quantiser; the
+             gradient tree's compression error and an int8 wire round trip
+             of the embedding's gradient; the drift model's §IV-A numbers
+             (``paper_metrics``), the curve RMSE 0.094753 within 5e-4; then
+             each kernel against its plain version at the path's shapes
+             (kernels 7-8 at 16 × 6,912, kernels 9-10 at the embedding leaf,
+             151,936 × 1,024), timed beside the byte bound;
+8. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
              at full width (28×28×1, conv 12@5×5, conv 24@3×3, fc 128; batch
              16, t_steps 30) on ``backend="fused"`` for 3 batches plus one
              evaluation, with conv-kernel launches = 2 × t_steps × batches and
@@ -60,8 +80,8 @@ printed on lines of its own:
              and the 2layer-snn protocol with ``exact``, whose final accuracy
              must be ≥ 0.25 and within 0.05 of the ``itp`` run's; one profiled
              DCSNN batch each for itp and exact;
-8. the ``kernels`` JSON line (kernels 1-4, and kernels 5-6 once per
-   window), the ``nvidia-smi`` name/power-limit line, and the final
+9. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+   kernels 7-10), the ``nvidia-smi`` name/power-limit line, and the final
    ``{"ok": true, ...}`` line.
 
 Any mismatch or exception ends the script with a non-zero exit.  Without a
@@ -97,6 +117,10 @@ REPLACES = {
        for w in COUNTER_WINDOWS},
     **{f"counter_conv_delta[{w}]": "src/repro/kernels/itp_counter/kernel.py:330"
        for w in COUNTER_WINDOWS},
+    "lif_update": "src/repro/kernels/lif/kernel.py:37",
+    "llsmu_multiply": "src/repro/kernels/llsmu/kernel.py:66",
+    "po2_encode": "src/repro/kernels/po2_quant/kernel.py:69",
+    "po2_decode": "src/repro/kernels/po2_quant/kernel.py:77",
 }
 SOURCES = {
     "itp_stdp_update_packed": "src/repro_torch/csrc/itp_stdp.cu",
@@ -104,6 +128,10 @@ SOURCES = {
     "itp_stdp_conv_delta_packed": "src/repro_torch/csrc/itp_stdp_conv.cu",
     "itp_stdp_conv_delta": "src/repro_torch/csrc/itp_stdp_conv.cu",
     **{k: "src/repro_torch/csrc/itp_counter.cu" for k in REPLACES if k.startswith("counter")},
+    "lif_update": "src/repro_torch/csrc/lif.cu",
+    "llsmu_multiply": "src/repro_torch/csrc/llsmu.cu",
+    "po2_encode": "src/repro_torch/csrc/po2_quant.cu",
+    "po2_decode": "src/repro_torch/csrc/po2_quant.cu",
 }
 # (M, K, C) of the paper nets' conv layers at batch 16: M = batch × positions
 CONV_CASES = {"DCSNN conv1": (9216, 25, 12), "DCSNN conv2": (1600, 108, 24),
@@ -129,6 +157,30 @@ CSNN_TRAIN = dict(epochs=1, batches_per_epoch=1, batch=16, t_steps=30,
 ACCURACY_TRAIN = dict(epochs=6, batches_per_epoch=8, batch=16, t_steps=30,
                       assign_batches=6, eval_batches=8, seed=0)
 ACCURACY_FLOOR = 0.25                   # 2.5 × chance on 10 classes
+# the side numerics: the DCSNN conv1 population (24×24×12 at batch 16)
+LIF_POPULATION = (16, 24 * 24 * 12)
+LIF_STEPS = 30
+LIF_FRAC_BITS = 8
+PAPER_HISTORY_DEPTH = 7
+# qwen3-0.6b (src/repro/configs/qwen3_0_6b.py): d_model 1024, 16 heads × 128,
+# 8 kv heads, d_ff 3072, vocab 151,936, q/k norms, tied embedding, 28 layers
+QWEN3 = dict(d_model=1024, n_heads=16, n_kv_heads=8, head_dim=128, d_ff=3072,
+             vocab=151_936, n_layers=28)
+QWEN3_LAYERS = 2                        # of 28: a cut that bounds chip time
+ADAMW_STEPS = 3
+DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
+DRIFT_RMSE_TOL = 5e-4
+# bytes per element, inputs read once and outputs written once: kernel 7 reads
+# v and I and writes v and the spikes (float32); kernel 8 reads two int32
+# operands and writes one; kernels 9-10 read four bytes and write four
+SIDE_BYTES = {"lif_update": 16, "llsmu_multiply": 12, "po2_encode": 8, "po2_decode": 8}
+# operations per element (counted at the float32 peak, the only non-tensor
+# rate of the data sheet): the LIF step's sub, mul, two adds, compare and
+# select; LLSMU's split, three Mitchell multiplies (leading-one counts,
+# mantissa shifts, branch, shift back) and recombination; the encoder's field
+# and mantissa extraction, compare, clip, bias and sign; the decoder's masks,
+# exponent build and select
+SIDE_OPS = {"lif_update": 6, "llsmu_multiply": 120, "po2_encode": 12, "po2_decode": 6}
 
 
 def _phase(name: str, msg: str) -> None:
@@ -575,7 +627,7 @@ def _counter_bound(lanes: int, n_pre: int, n_post: int, depth: int,
 
 
 def _timed(name: str, what: str, kern, plain, bound, kernel_name: str, *,
-           launches_per_call: int = 1) -> dict:
+           launches_per_call: int = 1, phase: str = "counter_kernels") -> dict:
     """Time a kernel call (CUDA events and the profiler) and its plain
     version (``None``: not timed); print one line; return the numbers."""
     ms = _time_ms(kern)
@@ -584,7 +636,7 @@ def _timed(name: str, what: str, kern, plain, bound, kernel_name: str, *,
     bound_ms, bound_by = bound
     dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
     plain_txt = "" if plain is None else f", plain {plain_ms:.5f} ms"
-    _phase("counter_kernels", f"{name} {what}: {ms:.5f} ms/call (CUDA events), kernel "
+    _phase(phase, f"{name} {what}: {ms:.5f} ms/call (CUDA events), kernel "
            f"alone {dev_txt} (profiler), bound {bound_ms:.5f} ms ({bound_by}){plain_txt}")
     return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -724,6 +776,226 @@ def _ratio_line(what: str, counter: dict, itp: dict) -> None:
            else f"{counter['device_ms'] / itp['device_ms']:.3f}")
     _phase("counter_kernels", f"ITP vs counter, {what}: {counter['ms'] / itp['ms']:.3f} "
            f"(CUDA events), {dev} (device time)")
+
+
+def _qwen3_shapes(layers: int) -> dict:
+    """The parameter tree of qwen3-0.6b with ``layers`` stacked blocks, leaf
+    shapes as the JAX package's ``models/transformer.py:107 init_model``
+    builds them: the embedding (``layers.py:133``, tied, so no output
+    matrix), the final RMS norm, and per block two norms, attention
+    (``attention.py:25``: wq, wk, wv, wo, q/k norms) and the SwiGLU MLP
+    (``layers.py:99``: gate, up, down)."""
+    d, hd, ff = QWEN3["d_model"], QWEN3["head_dim"], QWEN3["d_ff"]
+    q, kv, n = QWEN3["n_heads"] * hd, QWEN3["n_kv_heads"] * hd, layers
+    return {"embed": {"tok": (QWEN3["vocab"], d)}, "final_norm": {"scale": (d,)},
+            "blocks": {"norm1": {"scale": (n, d)}, "norm2": {"scale": (n, d)},
+                       "attn": {"wq": (n, d, q), "wk": (n, d, kv), "wv": (n, d, kv),
+                                "wo": (n, q, d), "q_norm": (n, hd), "k_norm": (n, hd)},
+                       "mlp": {"gate": (n, d, ff), "up": (n, d, ff), "down": (n, ff, d)}}}
+
+
+def _fill(shapes: dict, make) -> dict:
+    """A tree of tensors ``make(path, shape)`` shaped as the dict of shapes."""
+    return {k: _fill(v, make) if isinstance(v, dict) else make(k, v)
+            for k, v in shapes.items()}
+
+
+def _side_bound(name: str, n: int) -> tuple[float, str]:
+    t_bytes = SIDE_BYTES[name] * n / HBM_BYTES_PER_S
+    t_ops = SIDE_OPS[name] * n / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _side_check(name: str, what: str, out, plain) -> dict:
+    """Hold a kernel's outputs against its plain version's, bitwise."""
+    import torch
+
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(out, plain))
+    err = max((a.double() - b.double()).abs().max().item() for a, b in zip(out, plain))
+    _phase("side_numerics", f"{name} {what}: max|err|={err:.3g}, bit-equal {equal} -> "
+           f"{'OK' if equal else 'MISMATCH'}")
+    if not equal:
+        raise SystemExit(f"side kernel mismatch: {name} at {what}")
+    return {"max_abs_err": err}
+
+
+def phase_side_numerics(device) -> dict:
+    """Kernels 7-10 on their paths: the neuron datapath (float and fixed
+    point) at the DCSNN conv1 population, ITP-AdamW on qwen3-0.6b's leaf
+    shapes, the drift model; then each kernel against its plain version at
+    the path's shapes, timed."""
+    import torch
+
+    from repro_torch.core import lif as TL
+    from repro_torch.core.drift import paper_metrics
+    from repro_torch.core.encoding import isi_histogram_batched, select_history_depth
+    from repro_torch.distributed.compression import (_decode_int8, _encode_int8,
+                                                     compression_error)
+    from repro_torch.kernels.lif import kernel as LK
+    from repro_torch.kernels.lif.ops import lif_step_kernel
+    from repro_torch.kernels.lif.ref import lif_update_ref
+    from repro_torch.kernels.llsmu import kernel as MK
+    from repro_torch.kernels.llsmu.ref import llsmu_multiply_ref
+    from repro_torch.kernels.po2_quant import kernel as PK
+    from repro_torch.kernels.po2_quant import ref as PR
+    from repro_torch.kernels.po2_quant.ops import po2_quantize
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.tree import tree_leaves
+
+    report, launches = {}, {}
+    counters = {"lif_update": LK.lif_update, "llsmu_multiply": MK.llsmu_multiply,
+                "po2_encode": PK.po2_encode, "po2_decode": PK.po2_decode}
+
+    # --- the neuron datapath: 30 steps, float (kernel 7) and fixed point (8)
+    p = TL.LIFParams()
+    gen = torch.Generator(device=device).manual_seed(14)
+    currents = torch.rand((LIF_STEPS, *LIF_POPULATION), generator=gen, device=device) * 0.8
+    fl = plain_fl = TL.lif_init(LIF_POPULATION, p, device=device)
+    fx = plain_fx = TL.lif_fixed_init(LIF_POPULATION, p, LIF_FRAC_BITS, device=device)
+    raster, same = [], True
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i_in in currents:
+        fl, s_fl = lif_step_kernel(fl, i_in, p)
+        fx, s_fx = TL.lif_step_llsmu(fx, i_in, p, frac_bits=LIF_FRAC_BITS)
+        raster.append(s_fx)
+        # the same step on the plain versions (no launches)
+        plain_fl, ps_fl = lif_step_kernel(plain_fl, i_in, p, use_kernel=False)
+        plain_fx, ps_fx = TL.lif_step_llsmu(plain_fx, i_in, p, frac_bits=LIF_FRAC_BITS,
+                                            use_kernel=False)
+        same &= (torch.equal(fl.v, plain_fl.v) and torch.equal(s_fl, ps_fl)
+                 and torch.equal(fx.v_q, plain_fx.v_q) and torch.equal(s_fx, ps_fx))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {"lif_update": LIF_STEPS, "llsmu_multiply": LIF_STEPS, "po2_encode": 0,
+            "po2_decode": 0}
+    n_pop = LIF_POPULATION[0] * LIF_POPULATION[1]
+    rates = (torch.stack(raster).float().mean().item(), s_fl.float().mean().item())
+    _phase("side_numerics", f"neuron datapath {LIF_POPULATION[0]}x{LIF_POPULATION[1]} "
+           f"(DCSNN conv1, LIFParams()), {LIF_STEPS} steps: float and fixed-point "
+           f"(frac_bits {LIF_FRAC_BITS}, n_bits 4) each step equal to the plain versions "
+           f"{same}; fixed-point rate {rates[0]:.4f}, last float step {rates[1]:.4f}; "
+           f"{wall * 1e3:.3f} ms with the plain steps; launches {counts}")
+    if not same or counts != want:
+        raise SystemExit(f"neuron datapath: equal {same}, launches {counts}, want {want}")
+    launches.update(lif_update=counts["lif_update"], llsmu_multiply=counts["llsmu_multiply"])
+    stats = isi_histogram_batched(torch.stack(raster).reshape(LIF_STEPS, n_pop))
+    depth = select_history_depth(stats)
+    _phase("side_numerics", f"ISI of the fixed-point raster: {stats.n_spikes} spikes, "
+           f"{stats.n_intervals} intervals, coverage at depth 7 {stats.coverage(7):.4f}; "
+           f"depth selected for 99 % coverage {depth} (the paper's: {PAPER_HISTORY_DEPTH})")
+
+    # --- ITP-AdamW on qwen3-0.6b's leaf shapes (kernels 9-10)
+    shapes = _qwen3_shapes(QWEN3_LAYERS)
+    g = torch.Generator(device=device).manual_seed(15)
+
+    def init(name, shape):
+        if name in ("scale", "q_norm", "k_norm"):
+            return torch.ones(shape, device=device)
+        return torch.randn(shape, generator=g, device=device) * 0.02
+
+    params = _fill(shapes, init)
+    leaves = len(tree_leaves(params))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+
+    def grads(step):
+        gg = torch.Generator(device=device).manual_seed(100 + step)
+        return _fill(shapes, lambda _, shape: torch.randn(shape, generator=gg, device=device)
+                     * 1e-3)
+
+    cfg = OPT.OptimizerConfig(po2_update=True)
+
+    def run(use_kernel):
+        prm, st = params, OPT.init_opt_state(params)
+        for step in range(ADAMW_STEPS):
+            prm, st, metrics = OPT.adamw_update(cfg, prm, grads(step), st,
+                                                use_kernel=use_kernel)
+        return prm, st, metrics
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kp, ks, km = run(True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {"lif_update": 0, "llsmu_multiply": 0, "po2_encode": leaves * ADAMW_STEPS,
+            "po2_decode": leaves * ADAMW_STEPS}
+    pp, ps, _ = run(False)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves((kp, ks.mu, ks.nu)),
+                                                 tree_leaves((pp, ps.mu, ps.nu))))
+    moved = sum(int((a != b).sum()) for a, b in zip(tree_leaves(kp), tree_leaves(params)))
+    _phase("side_numerics", f"ITP-AdamW on qwen3-0.6b leaf shapes ({QWEN3_LAYERS} of "
+           f"{QWEN3['n_layers']} layers: a cut that bounds chip time; {leaves} leaves, "
+           f"{n_params} float32 parameters), {ADAMW_STEPS} steps: {wall * 1e3:.3f} ms "
+           f"(gradients drawn inside); lr {float(km['lr']):.6g}, grad norm "
+           f"{float(km['grad_norm']):.6g}; {moved} parameters moved; kernels == plain "
+           f"quantiser (parameters and moments, bitwise) {same}; launches {counts}")
+    if not same or counts != want:
+        raise SystemExit(f"ITP-AdamW: equal {same}, launches {counts}, want {want}")
+    launches.update(po2_encode=counts["po2_encode"], po2_decode=counts["po2_decode"])
+    del pp, ps, kp, ks
+    last = grads(ADAMW_STEPS - 1)
+    err = float(compression_error(last))
+    tok = last["embed"]["tok"]
+    wire = _encode_int8(tok)
+    round_trip = torch.equal(_decode_int8(wire), po2_quantize(tok, use_kernel=False))
+    _phase("side_numerics", f"po2 wire codec: compression error over the gradient tree "
+           f"{err:.6f}; embedding gradient {tuple(tok.shape)} as {wire.numel()} int8 bytes "
+           f"({wire.element_size()} B/element against 4), round trip == po2_quantize "
+           f"{round_trip}")
+    if not round_trip or not err < 0.25:
+        raise SystemExit(f"po2 wire codec: round trip {round_trip}, error {err}")
+
+    # --- the drift model (§IV-A), on the card
+    t0 = time.perf_counter()
+    m = paper_metrics(device=device)
+    wall = time.perf_counter() - t0
+    _phase("side_numerics", f"drift (paper §IV-A): update-curve RMSE "
+           f"{m['update_curve_rmse']:.6f} (paper 0.094753), equilibrium shift "
+           f"{m['equilibrium_rel_err']:.4f} (paper 0.2469), convergence-time error "
+           f"{m['convergence_time_rel_err']:.4f} (paper 0.0736), compensated RMSE "
+           f"{m['update_curve_rmse_compensated']:.3g}; {wall:.3f} s")
+    if not (abs(m["update_curve_rmse"] - DRIFT_RMSE) < DRIFT_RMSE_TOL
+            and m["update_curve_rmse_compensated"] < 1e-6):
+        raise SystemExit(f"drift metrics off: {m}")
+
+    # --- each kernel against its plain version at the path's shapes, timed
+    v, i_in = fl.v, currents[-1]
+    kw = dict(alpha=p.alpha, e_rest=p.e_rest, v_th=p.v_th)
+    what = f"{LIF_POPULATION[0]}x{LIF_POPULATION[1]}"
+    report["lif_update"] = _side_check("lif_update", what, LK.lif_update(v, i_in, **kw),
+                                       lif_update_ref(v, i_in, **kw))
+    e_q = round(p.e_rest * (1 << LIF_FRAC_BITS))
+    a = torch.abs(fx.v_q - e_q).contiguous()
+    b = torch.full_like(a, round(p.alpha * (1 << LIF_FRAC_BITS)))
+    report["llsmu_multiply"] = _side_check("llsmu_multiply", what,
+                                           (MK.llsmu_multiply(a, b),),
+                                           (llsmu_multiply_ref(a, b),))
+    codes = PK.po2_encode(tok)
+    emb = f"embedding {tok.shape[0]}x{tok.shape[1]}"
+    report["po2_encode"] = _side_check("po2_encode", emb, (codes,), (PR.po2_encode_ref(tok),))
+    report["po2_decode"] = _side_check("po2_decode", emb, (PK.po2_decode(codes),),
+                                       (PR.po2_decode_ref(codes),))
+    timings = {
+        "lif_update": (lambda: LK.lif_update(v, i_in, **kw),
+                       lambda: lif_update_ref(v, i_in, **kw), n_pop, what),
+        "llsmu_multiply": (lambda: MK.llsmu_multiply(a, b), lambda: llsmu_multiply_ref(a, b),
+                           n_pop, what),
+        "po2_encode": (lambda: PK.po2_encode(tok), lambda: PR.po2_encode_ref(tok),
+                       tok.numel(), emb),
+        "po2_decode": (lambda: PK.po2_decode(codes), lambda: PR.po2_decode_ref(codes),
+                       codes.numel(), emb),
+    }
+    for name, (kern, plain, n, shape) in timings.items():
+        report[name].update(_timed(name, shape, kern, plain, _side_bound(name, n),
+                                   f"{name}_kernel", phase="side_numerics"), shape=shape)
+    return {"kernels": report, "launches": launches}
 
 
 def _train_counters():
@@ -969,6 +1241,8 @@ def main() -> int:
            f"{serve['exact_requests_per_s']:.2f} requests/s (exact)")
     kernels.update(phase_conv_kernels(device))
     kernels.update(phase_counter_kernels(device))
+    side = phase_side_numerics(device)
+    kernels.update(side["kernels"])
     train = phase_train(device)
     dcsnn = train["6layer-dcsnn"]
     # launches: each kernel's count from the run of its main path (serving for
@@ -983,6 +1257,7 @@ def main() -> int:
         counts = train[run]["launches"]
         launches[f"counter_conv_delta[{window}]"] = counts["counter_conv_delta"]
         launches.setdefault(f"counter_stdp_update[{window}]", counts["counter_stdp_update"])
+    launches.update(side["launches"])   # the neuron datapath and ITP-AdamW runs
     if not all(launches[name] > 0 for name in kernels):
         raise SystemExit(f"a kernel of the path was never launched: {launches}")
     for net, r in train.items():

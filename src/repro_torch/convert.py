@@ -1,7 +1,8 @@
 """Carry engine and session state between the JAX reference and the port.
 
 The two packages' random streams cannot match, so everything a parity
-check compares goes through here (engine, serving-session and SNN state):
+check compares goes through here (engine, serving-session, SNN and
+fixed-point neuron state, parameter and gradient trees, optimizer state):
 the reference's state, read as numpy arrays, becomes the port's on a chosen
 device, and the port's state comes
 back as numpy arrays in the reference's field order, ready to wrap in its
@@ -22,9 +23,11 @@ import torch
 
 from repro_torch.core.engine import EngineState
 from repro_torch.core.history import SpikeHistory
-from repro_torch.core.lif import IzhikevichState, LIFState
+from repro_torch.core.lif import IzhikevichState, LIFFixedState, LIFState
 from repro_torch.models.snn import LayerState, SNNState
 from repro_torch.serve.session import SessionState
+from repro_torch.train.optimizer import OptState
+from repro_torch.tree import tree_map
 
 
 def _to(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -132,3 +135,32 @@ def snn_state_to_numpy(state: SNNState) -> tuple:
                        _history_np(lst.pre_hist), _history_np(lst.post_hist),
                        None if lst.theta is None else _np(lst.theta)))
     return tuple(_np(w) for w in state.weights), tuple(layers)
+
+
+def lif_fixed_state_from_arrays(state, *, device: torch.device | str) -> LIFFixedState:
+    """``LIFFixedState`` from the reference's (``v_q``,), int32."""
+    return LIFFixedState(v_q=_to(state.v_q, torch.int32, device))
+
+
+def tree_from_arrays(tree, *, device: torch.device | str):
+    """A tree of tensors from a tree of arrays (nested dicts, lists, tuples),
+    each leaf keeping its dtype."""
+    return tree_map(lambda x: torch.as_tensor(np.array(x)).to(device), tree)
+
+
+def tree_to_numpy(tree):
+    """The tree with every tensor leaf as a numpy array."""
+    return tree_map(_np, tree)
+
+
+def opt_state_from_arrays(state, *, device: torch.device | str) -> OptState:
+    """``OptState`` from the reference's (``step``, ``mu``, ``nu``); ``step`` an
+    int32 scalar, the moments float32 trees."""
+    return OptState(step=_to(state.step, torch.int32, device),
+                    mu=tree_from_arrays(state.mu, device=device),
+                    nu=tree_from_arrays(state.nu, device=device))
+
+
+def opt_state_to_numpy(state: OptState) -> tuple:
+    """``(step, mu, nu)`` in the reference's ``OptState`` field order."""
+    return _np(state.step, np.int32), tree_to_numpy(state.mu), tree_to_numpy(state.nu)

@@ -1,9 +1,15 @@
-"""Neuron models (port of ``repro.core.lif``): the exact-float LIF step
-(paper eqs. 4-5) and the Izhikevich neuron of the 6-layer DCSNN (§IV-C).
+"""Neuron models (port of ``repro.core.lif``): the LIF neuron (paper eqs.
+4-5) on its two datapaths, and the Izhikevich neuron of the 6-layer DCSNN
+(§IV-C).
 
-Both are plain tensor arithmetic, as in the reference, where they do not
-reach the ``kernels/lif`` Pallas kernel.  The LLSMU fixed-point LIF step
-comes with a later slice (ROADMAP queue 1 item 14).
+* ``lif_step``        — exact float path:  V' = α·(V−E) + E + I,  α = e^(−1/τ)
+* ``lif_step_llsmu``  — fixed-point path where the α·(V−E) multiply goes
+  through the LLSMU approximate multiplier (``kernels.llsmu``), as in the
+  paper's learning engine (Fig. 9).  V is kept in Q(``frac_bits``) integers.
+
+``lif_step`` and the Izhikevich step are plain tensor arithmetic, as in the
+reference; ``kernels.lif.ops.lif_step_kernel`` is the kernel-backed drop-in
+for ``lif_step`` without a threshold offset.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.llsmu.ops import llsmu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +54,42 @@ def lif_step(state: LIFState, i_in: torch.Tensor, p: LIFParams,
     spikes = v > p.v_th + v_th_offset
     v = torch.where(spikes, p.e_rest, v)
     return LIFState(v=v), spikes
+
+
+class LIFFixedState(NamedTuple):
+    v_q: torch.Tensor  # int32, Q(frac_bits)
+
+
+def lif_fixed_init(shape, p: LIFParams, frac_bits: int = 8, *,
+                   device: torch.device | str | None = None) -> LIFFixedState:
+    e_q = round(p.e_rest * (1 << frac_bits))
+    return LIFFixedState(v_q=torch.full(shape, e_q, dtype=torch.int32, device=device))
+
+
+def lif_step_llsmu(state: LIFFixedState, i_in: torch.Tensor, p: LIFParams, *,
+                   frac_bits: int = 8, use_kernel: bool = True
+                   ) -> tuple[LIFFixedState, torch.Tensor]:
+    """Hardware-faithful LIF step: the leak multiply uses LLSMU (Fig. 9).
+
+    V is Q(frac_bits) int32; α is quantised to the same format (rounded in
+    Python, as the reference); the product α·(V−E) is a Q×Q→Q2 LLSMU multiply
+    followed by a truncating shift.  ``i_in`` is a float current, quantised
+    on entry (``torch.round`` rounds half to even, as ``jnp.round``).
+    ``use_kernel`` is passed to ``kernels.llsmu.ops.llsmu``: the LLSMU kernel
+    (its plain version on the CPU), or the reference oracle when False.
+    Returns ``(state', spikes)``, spikes bool.
+    """
+    one = 1 << frac_bits
+    alpha_q = round(p.alpha * one)
+    e_q = round(p.e_rest * one)
+    vth_q = round(p.v_th * one)
+    i_q = torch.round(torch.as_tensor(i_in).to(torch.float32) * one).to(torch.int32)
+
+    leak = llsmu(state.v_q - e_q, alpha_q, use_kernel=use_kernel) >> frac_bits
+    v_q = leak + e_q + i_q
+    spikes = v_q > vth_q
+    v_q = torch.where(spikes, e_q, v_q)
+    return LIFFixedState(v_q=v_q), spikes
 
 
 # ---------------------------------------------------------------------------

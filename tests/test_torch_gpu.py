@@ -11,13 +11,17 @@ kernels' exact window takes a double ``exp`` on each side (the kernel's and
 PyTorch's), held within rtol=atol=1e-6 (the reference's window tolerance);
 the linear and imstdp windows bit for bit; the counter conv delta at depth
 255, whose window values span more binades than a double's spare bits,
-within the conv tolerance."""
+within the conv tolerance.  The side kernels (the fused LIF step, the LLSMU
+multiplier, the po2 encoder and decoder) compute the same integers or the
+same float32 roundings as their plain versions and are held bit for bit."""
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import lif as TL
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.history import pack_bitplanes, unpack_words
 from repro_torch.core.stdp import STDPParams
@@ -29,8 +33,19 @@ from repro_torch.kernels.itp_stdp import ref as R
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
 from repro_torch.kernels.itp_stdp_conv import kernel as CK
 from repro_torch.kernels.itp_stdp_conv import ref as CR
+from repro_torch.kernels.lif import kernel as LK
+from repro_torch.kernels.lif.ops import lif_step_kernel
+from repro_torch.kernels.lif.ref import lif_update_ref
+from repro_torch.kernels.llsmu import kernel as MK
+from repro_torch.kernels.llsmu.ops import llsmu
+from repro_torch.kernels.llsmu.ref import llsmu_multiply_ref
+from repro_torch.kernels.po2_quant import kernel as PK
+from repro_torch.kernels.po2_quant import ref as PR
+from repro_torch.kernels.po2_quant.ops import po2_quantize
 from repro_torch.models import snn as TS
 from repro_torch.serve import Request, ServeConfig, Server
+from repro_torch.train import optimizer as OPT
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -328,3 +343,167 @@ def test_counter_net_on_card_fused_matches_reference(cuda, net, rule):
     assert cf.sum() > 0 and torch.equal(cf, cr)
     for a, b in zip(sf.weights, sr.weights):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the side kernels: fused LIF (7), LLSMU (8), po2 encode (9) and decode (10)
+# ---------------------------------------------------------------------------
+
+SIDE_SHAPES = ((1,), (127,), (6913,), (16, 6912))
+LIF_PARAMS = (dict(), dict(tau=2.0, v_th=0.7), dict(tau=20.0, v_th=1.0, e_rest=-0.5))
+
+
+@pytest.mark.parametrize("shape", SIDE_SHAPES)
+@pytest.mark.parametrize("params", range(len(LIF_PARAMS)))
+def test_lif_kernel_bit_equal_to_plain_version(cuda, shape, params):
+    p = TL.LIFParams(**LIF_PARAMS[params])
+    g = torch.Generator().manual_seed(len(shape) * 100 + params)
+    v = (torch.rand(shape, generator=g) * 1.7 - 0.5).to(cuda)
+    i_in = (torch.rand(shape, generator=g) * 0.8).to(cuda)
+    kw = dict(alpha=p.alpha, e_rest=p.e_rest, v_th=p.v_th)
+    v2, s = LK.lif_update(v, i_in, **kw)
+    pv, ps = lif_update_ref(v, i_in, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v2, pv) and torch.equal(s, ps)
+    if len(shape) <= 2:
+        st, spk = lif_step_kernel(TL.LIFState(v=v), i_in, p)
+        ref_st, ref_spk = TL.lif_step(TL.LIFState(v=v), i_in, p)
+        assert torch.equal(st.v, ref_st.v) and torch.equal(spk, ref_spk)
+
+
+def _operands(shape, top, g):
+    n = int(np.prod(shape))
+    bits = torch.randint(0, top + 1, (2, n), generator=g)
+    vals = torch.randint(0, 2**31 - 1, (2, n), generator=g, dtype=torch.int64) % (1 << bits)
+    edges = torch.tensor([0, 1, 2, 3, 15, 16, 17, 255, 256, 2**20 - 1, 2**20, 2**30 - 1, 2**30])
+    k = min(n, edges.numel())
+    vals[0, :k] = edges[:k] % (1 << top)
+    vals[1, :k] = edges.flip(0)[:k] % (1 << top)
+    return (vals.to(torch.int32).reshape(2, *shape))
+
+
+@pytest.mark.parametrize("shape", SIDE_SHAPES)
+@pytest.mark.parametrize("n_bits", (3, 4, 5, 8))
+def test_llsmu_kernel_bit_equal_to_plain_version(cuda, shape, n_bits):
+    """Operands up to 2^30, beyond 2N bits too, where wrapping int32
+    arithmetic and shifts past the width decide the result."""
+    g = torch.Generator().manual_seed(n_bits * 10 + len(shape))
+    for top in (2 * n_bits, 30):
+        a, b = _operands(shape, top, g).to(cuda)
+        out = MK.llsmu_multiply(a, b, n_bits=n_bits)
+        plain = llsmu_multiply_ref(a, b, n_bits=n_bits)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int32 and torch.equal(out, plain)
+        assert torch.equal(out.cpu(), llsmu_multiply_ref(a.cpu(), b.cpu(), n_bits=n_bits))
+
+
+def test_llsmu_signed_and_fixed_point_lif_on_card(cuda):
+    """The signed wrapper and 30 fixed-point LIF steps at 16 × 6,912: the
+    kernel equals the reference oracle, state and spikes at every step."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randint(-255, 256, (4, 1000), generator=g, dtype=torch.int32).to(cuda)
+    b = torch.randint(-255, 256, (4, 1000), generator=g, dtype=torch.int32).to(cuda)
+    assert torch.equal(llsmu(a, b), llsmu(a, b, use_kernel=False))
+    p = TL.LIFParams()
+    st = TL.lif_fixed_init((16, 6912), p, device=cuda)
+    plain = st
+    for _ in range(30):
+        i_in = (torch.rand((16, 6912), generator=g) * 0.8).to(cuda)
+        st, spk = TL.lif_step_llsmu(st, i_in, p)
+        plain, plain_spk = TL.lif_step_llsmu(plain, i_in, p, use_kernel=False)
+        assert torch.equal(st.v_q, plain.v_q) and torch.equal(spk, plain_spk)
+
+
+SIDE_EDGES = (0.0, -0.0, math.nan, -math.nan, math.inf, -math.inf, 1e-45, 1e-40, -1e-40,
+              5e-39, 1.1754944e-38, -1.1754944e-38, 1e-38, 2.0 ** -64, 2.0 ** -63, 2.0 ** 62,
+              2.0 ** 63, 2.0 ** 64, 3.4028235e38, -3.4028235e38, 1.0, -1.0, 1.5, 1.4)
+
+
+def _po2_values(shape, g):
+    n = int(np.prod(shape))
+    a = torch.randn(n, generator=g) * torch.exp(torch.rand(n, generator=g) * 40 - 20)
+    centres = (torch.tensor(2.0).sqrt() * torch.exp2(torch.arange(-70.0, 70.0))).view(torch.int32)
+    ties = (centres[:, None] + torch.arange(-6, 7, dtype=torch.int32)).reshape(-1)
+    ties = ties.view(torch.float32)
+    x = torch.cat([torch.tensor(SIDE_EDGES), ties, -ties, a])[:n]
+    return x.reshape(shape)
+
+
+@pytest.mark.parametrize("shape", SIDE_SHAPES)
+def test_po2_kernels_bit_equal_to_plain_versions(cuda, shape):
+    x = _po2_values(shape, torch.Generator().manual_seed(len(shape))).to(cuda)
+    codes = PK.po2_encode(x)
+    plain = PR.po2_encode_ref(x)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int32 and torch.equal(codes, plain)
+    assert torch.equal(codes.cpu(), PR.po2_encode_ref(x.cpu()))
+    back = PK.po2_decode(codes)
+    assert torch.equal(back.view(torch.int32), PR.po2_decode_ref(codes).view(torch.int32))
+    assert torch.equal(po2_quantize(x, use_kernel=True), po2_quantize(x, use_kernel=False))
+
+
+def test_po2_edges_and_every_code_on_card(cuda):
+    for value in SIDE_EDGES:
+        x = torch.tensor([value], device=cuda)
+        assert int(PK.po2_encode(x)) == int(PR.po2_encode_ref(x.cpu())), value
+    codes = torch.arange(-512, 512, dtype=torch.int32, device=cuda)
+    out = PK.po2_decode(codes)
+    assert torch.equal(out.view(torch.int32), PR.po2_decode_ref(codes.cpu()).view(torch.int32)
+                       .to(cuda))
+
+
+def test_side_kernels_count_launches_and_reject_bad_operands(cuda):
+    x = torch.rand((4, 33), device=cuda)
+    c = torch.randint(0, 256, (4, 33), device=cuda, dtype=torch.int32)
+    kernels = (LK.lif_update, MK.llsmu_multiply, PK.po2_encode, PK.po2_decode)
+    for k in kernels:
+        k.launches = 0
+    LK.lif_update(x, x, alpha=0.5)
+    MK.llsmu_multiply(c, c)
+    PK.po2_encode(x)
+    PK.po2_decode(c)
+    assert [k.launches for k in kernels] == [1, 1, 1, 1]
+    with pytest.raises(TypeError, match="float32"):
+        LK.lif_update(x.double(), x.double(), alpha=0.5)
+    with pytest.raises(ValueError, match="is on cpu"):
+        LK.lif_update(x, x.cpu(), alpha=0.5)
+    with pytest.raises(ValueError, match="shape"):
+        MK.llsmu_multiply(c, c[:, :-1])
+    with pytest.raises(TypeError, match="int32"):
+        MK.llsmu_multiply(c.long(), c.long())
+    with pytest.raises(ValueError, match="n_bits"):
+        MK.llsmu_multiply(c, c, n_bits=11)
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.po2_encode(x.t())
+    with pytest.raises(TypeError, match="int32"):
+        PK.po2_decode(x)
+    assert [k.launches for k in kernels] == [1, 1, 1, 1]
+
+
+def test_itp_adamw_on_card_kernels_equal_plain_quantiser(cuda):
+    """3 ITP-AdamW steps: the po2 kernels launch once per leaf per step, and
+    parameters and moments equal the run on the plain quantiser bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shapes = {"embed": {"tok": (512, 64)}, "blocks": {"attn": {"wq": (2, 64, 96)},
+                                                       "norm1": {"scale": (2, 64)}}}
+    params = {"embed": {"tok": torch.randn(shapes["embed"]["tok"], generator=g, device=cuda)},
+              "blocks": {"attn": {"wq": torch.randn((2, 64, 96), generator=g, device=cuda)},
+                         "norm1": {"scale": torch.ones((2, 64), device=cuda)}}}
+    cfg = OPT.OptimizerConfig(po2_update=True, warmup_steps=2)
+    runs = {}
+    for use_kernel in (True, False):
+        p, st = params, OPT.init_opt_state(params)
+        PK.po2_encode.launches = PK.po2_decode.launches = 0
+        for step in range(3):
+            gg = torch.Generator(device=cuda).manual_seed(10 + step)
+            grads = {"embed": {"tok": torch.randn((512, 64), generator=gg, device=cuda)},
+                     "blocks": {"attn": {"wq": torch.randn((2, 64, 96), generator=gg,
+                                                           device=cuda)},
+                                "norm1": {"scale": torch.randn((2, 64), generator=gg,
+                                                               device=cuda)}}}
+            p, st, _ = OPT.adamw_update(cfg, p, grads, st, use_kernel=use_kernel)
+        leaves = len(tree_leaves(params))
+        want = 3 * leaves if use_kernel else 0
+        assert PK.po2_encode.launches == PK.po2_decode.launches == want
+        runs[use_kernel] = tree_leaves((p, st.mu, st.nu))
+    assert all(torch.equal(a, b) for a, b in zip(runs[True], runs[False]))

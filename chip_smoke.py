@@ -207,12 +207,11 @@ def _time_ms(fn, *, reps: int = 30, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_name: str, *, launches_per_call: int = 1,
-               n: int = 50) -> float | None:
-    """Device time per call of ``fn`` summed over the kernels whose names
-    contain ``kernel_name``, from a profiler trace; None unless the trace
-    holds all ``n × launches_per_call`` of their launches (a trace that
-    lost events would read low)."""
+def _device_ms(fn, kernel_name: str, *, n: int = 50) -> float | None:
+    """Device time per call of ``fn`` (one launch of a kernel whose name
+    contains ``kernel_name``), from a profiler trace; None unless the trace
+    holds exactly ``n`` such launches (a trace that lost events would read
+    low)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -227,8 +226,8 @@ def _device_ms(fn, kernel_name: str, *, launches_per_call: int = 1,
                 row, "cuda_time_total", 0.0)
             count += row.count
     _phase("profile", f"{kernel_name}: the trace holds {count} of "
-           f"{n * launches_per_call} launches")
-    return total_us / n / 1e3 if count == n * launches_per_call else None
+           f"{n} launches")
+    return total_us / n / 1e3 if count == n else None
 
 
 def _bound(lanes: int, n_pre: int, n_post: int, depth: int, packed: bool
@@ -595,11 +594,11 @@ def phase_conv_kernels(device) -> dict:
             ms = _time_ms(kern)
             plain_ms = _time_ms(plain, reps=10, inner=5)
             bound_ms, bound_by = _conv_bound(m, k, c, CONV_DEPTH, is_packed)
-            device_ms = _device_ms(kern, "conv_delta_", launches_per_call=2)
+            device_ms = _device_ms(kern, "conv_delta_")
             dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
             _phase("conv_kernels", f"{name} {layer} ({m}x{k}x{c}, depth {CONV_DEPTH}): "
-                   f"{ms:.5f} ms/call (CUDA events), kernels alone {dev_txt} (profiler, "
-                   f"both passes), bound {bound_ms:.5f} ms ({bound_by}), plain "
+                   f"{ms:.5f} ms/call (CUDA events), kernel alone {dev_txt} (profiler), "
+                   f"bound {bound_ms:.5f} ms ({bound_by}), plain "
                    f"{plain_ms:.5f} ms")
             report[name].setdefault("layers", {})[layer] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -627,12 +626,12 @@ def _counter_bound(lanes: int, n_pre: int, n_post: int, depth: int,
 
 
 def _timed(name: str, what: str, kern, plain, bound, kernel_name: str, *,
-           launches_per_call: int = 1, phase: str = "counter_kernels") -> dict:
+           phase: str = "counter_kernels") -> dict:
     """Time a kernel call (CUDA events and the profiler) and its plain
     version (``None``: not timed); print one line; return the numbers."""
     ms = _time_ms(kern)
     plain_ms = None if plain is None else _time_ms(plain, reps=10, inner=5)
-    device_ms = _device_ms(kern, kernel_name, launches_per_call=launches_per_call)
+    device_ms = _device_ms(kern, kernel_name)
     bound_ms, bound_by = bound
     dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
     plain_txt = "" if plain is None else f", plain {plain_ms:.5f} ms"
@@ -751,8 +750,7 @@ def phase_counter_kernels(device) -> dict:
                        lambda: NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw),
                        lambda: NR.counter_conv_delta_ref(pre, post, pre_t, post_t, lut=lut,
                                                          **kw),
-                       _conv_bound(m, k, c, depth, True, window), "conv_delta_",
-                       launches_per_call=2)
+                       _conv_bound(m, k, c, depth, True, window), "conv_delta_")
             if layer == "DCSNN conv1" and depth == COUNTER_DEPTH:
                 rep.update(t, shape=what)
         if layer == "DCSNN conv1" and depth == COUNTER_DEPTH:
@@ -764,8 +762,7 @@ def phase_counter_kernels(device) -> dict:
                          f"depth={depth} (beside kernel 6)",
                          lambda: CK.itp_stdp_conv_delta_packed(pre, post, *words, *po2,
                                                                depth=depth),
-                         None, _conv_bound(m, k, c, depth, True), "conv_delta_",
-                         launches_per_call=2)
+                         None, _conv_bound(m, k, c, depth, True), "conv_delta_")
             _ratio_line("kernel 6 (exact) / kernel 3", report["counter_conv_delta[exact]"],
                         itp)
     return report

@@ -40,15 +40,21 @@
 // w loads and stores), all lanes in one launch, ragged edges masked here.
 // Each thread reads its w element before writing it, so w_out may alias w.
 //
-// counter_conv_delta.  The split-M two-pass contraction of gated_sum.cuh
-// (the design of itp_stdp_conv.cu) with the counter window as the element
-// magnitude: per-chunk float64 partials into a (S, K, C) scratch tensor, an
-// ordered second pass, no atomics, no padding.  Every term is a float32
-// window value or 0; at depth 7 the values span a few binades and the double
-// sums are exact (bit-equal to the plain version's float64 contraction); at a
-// large depth (255 with tau = 4 spans ~90 binades) the sum is deterministic
-// and within the reference's tolerance of the plain version.  Bound: memory,
-// as itp_stdp_conv.cu.
+// counter_conv_delta.  The one-launch cooperative contraction of
+// gated_sum.cuh (the design of itp_stdp_conv.cu) with the counter window as
+// the element magnitude: every co-resident block evaluates each of its rows'
+// windows once for all K x C outputs (into shared memory, while cp.async
+// stages the next rows), sums them into 16 independent double accumulators a
+// thread, and the lanes and blocks are added in a fixed order in the same
+// kernel (a per-call float64 scratch, a grid sync), no atomics, no padding.
+// Each element's window is still evaluated in the kernel, as kernel 3 reads
+// each element's register once, so the two remain the paper's datapath
+// comparison on one contraction design.  Every term is a float32 window
+// value or 0; at depth 7 the values span a few binades and the double sums
+// are exact (bit-equal to the plain version's float64 contraction); at a
+// large depth (255 with tau = 4 spans ~90 binades) the fixed order keeps the
+// sum equal run to run and within the reference's tolerance of the plain
+// version.  Bound: latency, as itp_stdp_conv.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,32 +143,36 @@ counter_stdp_kernel(float* w_out, const float* w,  // may alias: in place
   w_out[at] = fminf(fmaxf(x, w_min), w_max);
 }
 
-// The window of one (M, X) counter-word operand as gated::partial_chunk's
-// magnitude functor.
+// The windows of both counter-word operands as gated::contract's magnitude
+// functor.
 template <int W>
 struct CounterRead {
-  const uint8_t* words;   // (M, X)
-  Side side;
-  int cols, depth;
-  __device__ __forceinline__ float operator()(int m, int x) const {
-    return window<W>(words[static_cast<size_t>(m) * cols + x], side, depth);
+  Side ltp, ltd;
+  int depth;
+  __device__ __forceinline__ float pre(const uint8_t* at, int) const {
+    return window<W>(*at, ltp, depth);
+  }
+  __device__ __forceinline__ float post(const uint8_t* at, int) const {
+    return window<W>(*at, ltd, depth);
   }
 };
 
 template <int W>
-__global__ void __launch_bounds__(gated::THREADS)
-counter_conv_delta_partial(double* __restrict__ partial, const float* __restrict__ pre,
-                           const float* __restrict__ post,
-                           const uint8_t* __restrict__ pre_words,
-                           const uint8_t* __restrict__ post_words,
-                           const float* __restrict__ lut, Side ltp, Side ltd, int M,
-                           int K, int C, int depth) {
-  __shared__ float s_lut[2 * MAX_DEPTH];
-  stage_lut<W>(s_lut, lut, depth, threadIdx.y * gated::TILE_C + threadIdx.x,
-               gated::THREADS, ltp, ltd);
-  const CounterRead<W> pre_mag{pre_words, ltp, K, depth};
-  const CounterRead<W> post_mag{post_words, ltd, C, depth};
-  gated::partial_chunk(partial, pre, post, pre_mag, post_mag, M, K, C);
+__global__ void __launch_bounds__(gated::THREADS, gated::MIN_BLOCKS)
+counter_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
+                          const float* __restrict__ pre, const float* __restrict__ post,
+                          const uint8_t* __restrict__ pre_words,
+                          const uint8_t* __restrict__ post_words,
+                          const float* __restrict__ lut, Side ltp, Side ltd, int depth,
+                          gated::Plan plan) {
+  extern __shared__ __align__(16) char smem[];
+  // the imstdp table is staged into shared memory with the first rows
+  const float* s_lut = reinterpret_cast<const float*>(smem + plan.param_at);
+  ltp.lut = s_lut;
+  ltd.lut = s_lut + depth;
+  const CounterRead<W> mag{ltp, ltd, depth};
+  gated::contract(out, partial, pre, post, pre_words, post_words, lut, lut + depth, plan,
+                  mag, smem);
 }
 
 Side side(float amp, float tau) { return Side{amp, tau, 2.0f * tau, nullptr}; }
@@ -187,21 +197,18 @@ int launch_conv(float* out, double* partial, const float* pre, const float* post
                 const uint8_t* pre_words, const uint8_t* post_words, const float* lut,
                 int M, int K, int C, int depth, Side ltp, Side ltd, int device,
                 void* stream) {
-  return gated::launch(out, partial, M, K, C, device, stream,
-                       [&](dim3 grid, dim3 block, cudaStream_t s) {
-                         counter_conv_delta_partial<W><<<grid, block, 0, s>>>(
-                             partial, pre, post, pre_words, post_words, lut, ltp, ltd,
-                             M, K, C, depth);
-                       });
+  return gated::launch(counter_conv_delta_kernel<W>, M, K, C, 1, 1, W == IMSTDP ? depth : 0,
+                       device, stream, out, partial, pre, post, pre_words, post_words, lut,
+                       ltp, ltd, depth);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per partial: the wrapper allocates partial as (chunks, K, C) float64
-// with chunks = ceil(M / counter_conv_chunk_rows()).
-int counter_conv_chunk_rows() { return gated::CHUNK_M; }
+// The wrapper allocates partial as K * C * counter_conv_max_splits(M, K, C)
+// float64 values (per call; no zeroing).
+int counter_conv_max_splits(int M, int K, int C) { return gated::max_splits(M, K, C); }
 
 // w, w_out: (lanes, n_pre, n_post) f32; spikes: (lanes, n) f32 {0,1}; counter
 // words: (lanes, n) uint8; lut: (2, depth) f32 (rows LTP, LTD; read by
@@ -239,8 +246,8 @@ int counter_stdp_update(float* w_out, const float* w, const float* pre_spike,
 }
 
 // pre: (M, K) f32, post: (M, C) f32, words: (M, K) / (M, C) uint8; lut and
-// window as above; out: (K, C) f32; partial: (chunks, K, C) f64 scratch.
-// Returns the cudaError_t of the launches (0 = success).
+// window as above; out: (K, C) f32; partial: f64 scratch, sized as above.
+// Returns the cudaError_t of the launch (0 = success).
 int counter_conv_delta(float* out, double* partial, const float* pre,
                        const float* post, const uint8_t* pre_words,
                        const uint8_t* post_words, const float* lut, int M, int K,

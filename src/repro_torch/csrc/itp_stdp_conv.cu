@@ -17,86 +17,114 @@
 // Both entry points instantiate one kernel template; only the history load
 // differs, so packed and unpacked are bit-identical.
 //
-// Bound: memory.  The inputs are read once (pre/post spikes as float32, one
-// history byte per element, or 4*depth bytes of bitplanes) against 4*M*K*C
-// flops of the two contractions; at the DCSNN conv1 shape (M=9216, K=25,
-// C=12, packed) that is 1.70 MB, 0.51 us at 3.35 TB/s, against 11 MFLOP,
-// 0.17 us at the 67 TFLOP/s float32 rate outside the tensor cores.
+// Bound.  The inputs are read once (pre/post spikes as float32, one history
+// byte per element, or 4*depth bytes of bitplanes) against 4*M*K*C flops of
+// the two contractions; at the DCSNN conv1 shape (M=9216, K=25, C=12,
+// packed) that is 1.70 MB, 0.51 us at 3.35 TB/s, against 11 MFLOP, 0.17 us
+// at the 67 TFLOP/s float32 rate outside the tensor cores.  Neither is what
+// holds the kernel: a call is a chain of loads, block syncs and double adds
+// a few microseconds long, so its time is latency, and the design is about
+// the length of that chain and how many SMs share it.
 //
 // Design.  The Pallas grid walks the M tiles in order and accumulates into
 // one resident VMEM block; blocks on the card run in no order, so the
-// contraction is the split-M two-pass scheme of gated_sum.cuh (per-chunk
-// float64 partials into a scratch tensor, then an ordered sum), with the po2
-// register read as its magnitude.  No atomics; ragged M, K and C are masked
-// in-kernel and the wrapper pads nothing.
+// contraction is the one-launch cooperative scheme of gated_sum.cuh: every
+// co-resident block sums its own rows for all K x C outputs (each element's
+// register read done once, into shared memory, while cp.async stages the
+// next rows), its lanes are added in a fixed tree, the blocks' float64
+// partials go to a per-call scratch tensor, the grid syncs, and each output
+// is summed over the blocks in a fixed order.  No atomics; ragged M, K and C
+// are masked in-kernel and the wrapper pads nothing.
 //
 // Arithmetic: no tensor cores (TF32 would drop the po2 sums' low bits).  The
 // magnitudes are float32, written with __fmul_rn/__fadd_rn so nvcc does not
 // contract them into FMAs.  The po2 terms span a few binades, so the float64
 // sums are exact: two runs, the packed and unpacked kernels, and the plain
-// version (which contracts in float64) agree bit for bit.  Double adds run at
-// half the float32 rate, which does not matter for a kernel bound by memory.
+// version (which contracts in float64) agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gated_sum.cuh"
 
 namespace {
 
-// po2 magnitude of element (m, x) of an (M, X) layout: k = 0 (newest) ..
-// depth-1, nearest mask = keep a bit only while the running count is one.
-template <bool PACKED>
-__device__ __forceinline__ float magnitude(const void* hist, int m, int x,
-                                           int rows, int cols,
-                                           const float* __restrict__ po2,
-                                           int depth, bool nearest) {
-  const size_t at = static_cast<size_t>(m) * cols + x;
-  float acc = 0.0f;
-  float count = 0.0f;
-  unsigned word = 0u;
-  if constexpr (PACKED) word = static_cast<const uint8_t*>(hist)[at];
-  for (int k = 0; k < depth; ++k) {
-    float bit;
-    if constexpr (PACKED) {
-      bit = static_cast<float>((word >> (7 - k)) & 1u);
-    } else {
-      bit = static_cast<const float*>(hist)[static_cast<size_t>(k) * rows * cols + at];
-    }
-    if (nearest) {
-      count = __fadd_rn(count, bit);
-      bit = (count == 1.0f) ? bit : 0.0f;
-    }
-    acc = __fadd_rn(acc, __fmul_rn(po2[k], bit));
+// One step of the po2 read: slot k's bit (0 or 1), the nearest mask (keep a
+// bit only while the running count is one), po2[k] * bit into the sum.
+__device__ __forceinline__ void po2_step(float po2_k, float bit, bool nearest, float& count,
+                                         float& acc) {
+  if (nearest) {
+    count = __fadd_rn(count, bit);
+    bit = (count == 1.0f) ? bit : 0.0f;
   }
-  return acc;
+  acc = __fadd_rn(acc, __fmul_rn(po2_k, bit));
 }
 
-// The register read of one (M, X) history operand as gated::partial_chunk's
-// magnitude functor.
+// The register read of both history operands as gated::contract's magnitude
+// functor, k = 0 (newest) .. depth-1: words (depth <= 8) hold slot k at bit
+// 7-k, bitplanes at at[k * plane], the po2 vectors in shared memory.  Under
+// nearest pairing a word's read is its newest live slot's po2 value (the MSB
+// mask of the paper's Fig. 11: a priority encoder, __clz), which is exactly
+// what the step-wise read reaches when the po2 values are finite: every other
+// step adds +-0.  Otherwise the read goes step by step.
 template <bool PACKED>
 struct Po2Read {
-  const void* hist;   // (M, X) u8 words | (depth, M, X) f32 bitplanes
-  const float* po2;   // (depth,)
-  int rows, cols, depth, nearest;
-  __device__ __forceinline__ float operator()(int m, int x) const {
-    return magnitude<PACKED>(hist, m, x, rows, cols, po2, depth, nearest != 0);
+  const float* po2;   // (2, depth) in shared memory: LTP row, LTD row
+  int depth;
+  bool nearest;
+
+  template <int SIDE, class Hist>
+  __device__ __forceinline__ float read(const Hist* at, int plane) const {
+    const float* row = po2 + SIDE * depth;
+    float acc = 0.0f, count = 0.0f;
+    if constexpr (PACKED) {
+      const unsigned word = *reinterpret_cast<const uint8_t*>(at);
+      if (nearest) {
+        const unsigned live = word & (0xff00u >> depth) & 0xffu;   // slots 0 .. depth-1
+        return live ? row[__clz(live << 24)] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {   // the bit as 1.0f or 0.0f, no conversion
+        const float bit = __uint_as_float(((word >> (7 - k)) & 1u) * 0x3f800000u);
+        if (k < depth) po2_step(row[k], bit, false, count, acc);
+      }
+    } else {
+#pragma unroll 1   // unrolled, the plane loads made ptxas spill
+      for (int k = 0; k < depth; ++k) {
+        po2_step(row[k], reinterpret_cast<const float*>(at)[k * plane], nearest, count, acc);
+      }
+    }
+    return acc;
+  }
+  template <class Hist>
+  __device__ __forceinline__ float pre(const Hist* at, int plane) const {
+    return read<0>(at, plane);
+  }
+  template <class Hist>
+  __device__ __forceinline__ float post(const Hist* at, int plane) const {
+    return read<1>(at, plane);
   }
 };
 
-// The operands arrive as plain kernel parameters and the functors are built
-// in the body (passed as struct parameters, ptxas held the bitplane variant
+// The operands arrive as plain kernel parameters and the functor is built
+// in the body (passed as a struct parameter, ptxas held the bitplane variant
 // at 32 registers with a spill).
 template <bool PACKED>
-__global__ void __launch_bounds__(gated::THREADS)
-conv_delta_partial(double* __restrict__ partial, const float* __restrict__ pre,
-                   const float* __restrict__ post, const void* __restrict__ pre_hist,
-                   const void* __restrict__ post_hist, const float* __restrict__ po2_ltp,
-                   const float* __restrict__ po2_ltd, int M, int K, int C, int depth,
-                   int nearest) {
-  const Po2Read<PACKED> pre_mag{pre_hist, po2_ltp, M, K, depth, nearest};
-  const Po2Read<PACKED> post_mag{post_hist, po2_ltd, M, C, depth, nearest};
-  gated::partial_chunk(partial, pre, post, pre_mag, post_mag, M, K, C);
+__global__ void __launch_bounds__(gated::THREADS, gated::MIN_BLOCKS)
+itp_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
+                      const float* __restrict__ pre, const float* __restrict__ post,
+                      const void* __restrict__ pre_hist, const void* __restrict__ post_hist,
+                      const float* __restrict__ po2_ltp, const float* __restrict__ po2_ltd,
+                      int depth, int nearest, gated::Plan plan) {
+  using Hist = typename std::conditional<PACKED, uint8_t, float>::type;
+  extern __shared__ __align__(16) char smem[];
+  // the po2 vectors are staged into shared memory with the first rows
+  const Po2Read<PACKED> mag{reinterpret_cast<const float*>(smem + plan.param_at), depth,
+                            nearest != 0};
+  gated::contract(out, partial, pre, post, static_cast<const Hist*>(pre_hist),
+                  static_cast<const Hist*>(post_hist), po2_ltp, po2_ltd, plan, mag, smem);
 }
 
 template <bool PACKED>
@@ -104,25 +132,22 @@ int launch(float* out, double* partial, const float* pre, const float* post,
            const void* pre_hist, const void* post_hist, const float* po2_ltp,
            const float* po2_ltd, int M, int K, int C, int depth, int nearest,
            int device, void* stream) {
-  return gated::launch(out, partial, M, K, C, device, stream,
-                       [&](dim3 grid, dim3 block, cudaStream_t s) {
-                         conv_delta_partial<PACKED><<<grid, block, 0, s>>>(
-                             partial, pre, post, pre_hist, post_hist, po2_ltp, po2_ltd,
-                             M, K, C, depth, nearest);
-                       });
+  return gated::launch(itp_conv_delta_kernel<PACKED>, M, K, C, PACKED ? 1 : 4,
+                       PACKED ? 1 : depth, depth, device, stream, out, partial, pre, post,
+                       pre_hist, post_hist, po2_ltp, po2_ltd, depth, nearest);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per partial: the wrapper allocates partial as (chunks, K, C) float64
-// with chunks = ceil(M / itp_stdp_conv_chunk_rows()).
-int itp_stdp_conv_chunk_rows() { return gated::CHUNK_M; }
+// The wrapper allocates partial as K * C * itp_stdp_conv_max_splits(M, K, C)
+// float64 values (per call; no zeroing).
+int itp_stdp_conv_max_splits(int M, int K, int C) { return gated::max_splits(M, K, C); }
 
 // pre: (M, K) f32, post: (M, C) f32, words: (M, K) / (M, C) uint8 with
 // register slot k at bit 7-k; po2: (depth,) f32; out: (K, C) f32.
-// Returns the cudaError_t of the launches (0 = success).
+// Returns the cudaError_t of the launch (0 = success).
 int itp_stdp_conv_delta_packed(float* out, double* partial, const float* pre,
                                const float* post, const uint8_t* pre_words,
                                const uint8_t* post_words, const float* po2_ltp,

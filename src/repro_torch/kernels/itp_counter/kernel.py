@@ -2,8 +2,8 @@
 
 Port of the Pallas kernels in ``repro/kernels/itp_counter/kernel.py``:
 ``counter_stdp_update`` (the dense clipped update, window evaluated per
-synapse) and ``counter_conv_delta`` (the im2col conv delta, the split-M
-float64 contraction of ``csrc/gated_sum.cuh``).  See the source for the
+synapse) and ``counter_conv_delta`` (the im2col conv delta, the one-launch
+cooperative float64 contraction of ``csrc/gated_sum.cuh``).  See the source for the
 design and its bound.
 
 A wrapper given CPU tensors runs the kernel's plain version (``ref.py``);
@@ -45,8 +45,8 @@ def _lib() -> ctypes.CDLL:
     lib.counter_stdp_update.restype = ctypes.c_int
     lib.counter_conv_delta.argtypes = _CONV_ARGTYPES
     lib.counter_conv_delta.restype = ctypes.c_int
-    lib.counter_conv_chunk_rows.argtypes = []
-    lib.counter_conv_chunk_rows.restype = ctypes.c_int
+    lib.counter_conv_max_splits.argtypes = [ctypes.c_int] * 3
+    lib.counter_conv_max_splits.restype = ctypes.c_int
     lib.counter_error_string.argtypes = [ctypes.c_int]
     lib.counter_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,9 +173,10 @@ def counter_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
     pre_words, post_words = pre_words.contiguous(), post_words.contiguous()
     lut = lut.contiguous()
     lib = _lib()
-    chunks = -(-m // lib.counter_conv_chunk_rows())
     out = torch.empty((k, c), dtype=torch.float32, device=dev)
-    partial = torch.empty((max(chunks, 1), k, c), dtype=torch.float64, device=dev)
+    # the blocks' float64 partials: every slot the launch reads it first writes
+    partial = torch.empty((lib.counter_conv_max_splits(m, k, c) * k * c,),
+                          dtype=torch.float64, device=dev)
     rc = lib.counter_conv_delta(
         out.data_ptr(), partial.data_ptr(), pre.data_ptr(), post.data_ptr(),
         pre_words.data_ptr(), post_words.data_ptr(), lut.data_ptr(), m, k, c, depth,

@@ -3,10 +3,11 @@
 Port of the Pallas kernels in ``repro/kernels/itp_stdp_conv/kernel.py``:
 ``itp_stdp_conv_delta_packed`` (one uint8 history word per patch element /
 output neuron) and ``itp_stdp_conv_delta`` (depth-major float32 bitplanes).
-Both share one CUDA device body and sum the M patch rows exactly in double
-(per-chunk partials, then an ordered second pass), so the packed and
-unpacked kernels, two runs, and the plain version all agree bit for bit.
-See the source for the design and its bound.
+Both share one CUDA device body, launched once per call as a cooperative
+grid that fills the card: each block sums its rows exactly in double, and
+the blocks' partials are added in a fixed order after a grid sync, in the
+same kernel.  So the packed and unpacked kernels, two runs, and the plain
+version all agree bit for bit.  See the source for the design and its bound.
 
 A wrapper given CPU tensors runs the kernel's plain version (``ref.py``);
 given CUDA tensors it launches the kernel on the current stream or raises —
@@ -38,8 +39,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    lib.itp_stdp_conv_chunk_rows.argtypes = []
-    lib.itp_stdp_conv_chunk_rows.restype = ctypes.c_int
+    lib.itp_stdp_conv_max_splits.argtypes = [ctypes.c_int] * 3
+    lib.itp_stdp_conv_max_splits.restype = ctypes.c_int
     lib.itp_stdp_conv_error_string.argtypes = [ctypes.c_int]
     lib.itp_stdp_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,9 +82,10 @@ def _launch(symbol: str, pre: torch.Tensor, post: torch.Tensor,
     pre_hist, post_hist = pre_hist.contiguous(), post_hist.contiguous()
     po2_ltp, po2_ltd = po2_ltp.contiguous(), po2_ltd.contiguous()
     lib = _lib()
-    chunks = -(-m // lib.itp_stdp_conv_chunk_rows())
     out = torch.empty((k, c), dtype=torch.float32, device=dev)
-    partial = torch.empty((max(chunks, 1), k, c), dtype=torch.float64, device=dev)
+    # the blocks' float64 partials: every slot the launch reads it first writes
+    partial = torch.empty((lib.itp_stdp_conv_max_splits(m, k, c) * k * c,),
+                          dtype=torch.float64, device=dev)
     rc = getattr(lib, symbol)(
         out.data_ptr(), partial.data_ptr(), pre.data_ptr(), post.data_ptr(),
         pre_hist.data_ptr(), post_hist.data_ptr(), po2_ltp.data_ptr(),

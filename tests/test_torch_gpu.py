@@ -146,9 +146,16 @@ def _conv_inputs(m, kk, cc, depth, seed, device):
     return x
 
 
-# the paper nets' conv layers at batch 16, plus ragged and single-row shapes
-@pytest.mark.parametrize("shape", ((9216, 25, 12), (1600, 108, 24), (4048, 14, 8),
-                                   (976, 40, 16), (257, 33, 9), (1, 20, 16), (0, 5, 3)))
+# the paper nets' conv layers at batch 16, plus ragged and single-row shapes;
+# M one below, at and one above a block's least row share (8 rows); DCSNN
+# conv1 at batch 256, far above the nets' own M; an output tile larger than
+# one block's (K x C = 25,600 outputs, 64 x 64 a block)
+CONV_SHAPES = ((9216, 25, 12), (1600, 108, 24), (4048, 14, 8), (976, 40, 16), (257, 33, 9),
+               (1, 20, 16), (0, 5, 3), (7, 25, 12), (8, 25, 12), (9, 25, 12),
+               (147456, 25, 12), (2048, 400, 64))
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("depth", (1, 7, 8))
 def test_conv_kernels_match_plain_versions(cuda, shape, depth):
     x = _conv_inputs(*shape, depth, seed=depth, device=cuda)
@@ -185,6 +192,53 @@ def test_conv_kernel_counts_launches_and_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="shape"):
         CK.itp_stdp_conv_delta(x["pre"], x["post"], x["pre_b"][:, :-1], x["post_b"], *po2)
     assert CK.itp_stdp_conv_delta_packed.launches == 1
+
+
+def test_conv_kernel_on_two_streams_at_once(cuda):
+    """Two streams launch kernel 3 in turns on different inputs; each call
+    has its own scratch, so both results equal their plain versions."""
+    xs = [_conv_inputs(9216, 25, 12, 7, seed=s, device=cuda) for s in (3, 4)]
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for x, s, out in zip(xs, streams, outs):
+            with torch.cuda.stream(s):
+                out.append(CK.itp_stdp_conv_delta_packed(x["pre"], x["post"], x["pre_w"],
+                                                         x["post_w"], *po2, depth=7))
+    torch.cuda.synchronize()
+    for x, out in zip(xs, outs):
+        plain = CR.itp_stdp_conv_delta_ref(x["pre"], x["post"], x["pre_b"], x["post_b"], *po2)
+        assert all(torch.equal(o, plain) for o in out)
+    assert not torch.equal(outs[0][0], outs[1][0])
+
+
+def test_conv_delta_is_one_kernel_launch_per_call(cuda):
+    """The profiler sees one conv-delta kernel per wrapper call (kernels 3,
+    4 and 6) and no other kernel, memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _conv_inputs(9216, 25, 12, 7, seed=5, device=cuda)
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    words = [_counters(t.shape, 7, g).to(cuda) for t in (x["pre"], x["post"])]
+    lut = counter_lut(STDPParams(), 7, cuda)
+    calls = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            CK.itp_stdp_conv_delta_packed(x["pre"], x["post"], x["pre_w"], x["post_w"], *po2,
+                                          depth=7)
+            CK.itp_stdp_conv_delta(x["pre"], x["post"], x["pre_b"], x["post_b"], *po2)
+            NK.counter_conv_delta(x["pre"], x["post"], *words, lut, **_counter_kw(7, "exact"))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 * calls
+    assert sum("itp_conv_delta_kernel<true>" in n for n in names) == calls
+    assert sum("itp_conv_delta_kernel<false>" in n for n in names) == calls
+    assert sum("counter_conv_delta_kernel" in n for n in names) == calls
 
 
 # --- the SNN stack on the card ---------------------------------------------
@@ -270,8 +324,7 @@ def test_counter_kernel_matches_plain_version(cuda, shape, depth, window):
         assert torch.equal(out, plain)
 
 
-@pytest.mark.parametrize("shape", ((9216, 25, 12), (1600, 108, 24), (4048, 14, 8),
-                                   (976, 40, 16), (257, 33, 9), (1, 20, 16), (0, 5, 3)))
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("depth", (7, 255))
 @pytest.mark.parametrize("window", WINDOWS)
 def test_counter_conv_kernel_matches_plain_version(cuda, shape, depth, window):

@@ -9,9 +9,11 @@ printed on lines of its own:
              into ``build/torch_kernels/`` (seconds, nvcc's ptxas report);
 3. kernels — each fused ITP-STDP kernel against its plain PyTorch version
              on the card: bit-equal (``torch.equal``) at the serving shape
-             8×784×100 (depth 1, 7, 8), a ragged 200×72, both pairings, and
-             packed ≡ unpacked; median times from CUDA events beside the
-             byte bound and the plain version's time;
+             8×784×100 (depth 1, 7, 8), the fc layers' batch-16 shapes
+             (16×784×100, 16×600×128, 16×480×64), a ragged 200×72, both
+             pairings, and packed ≡ unpacked; at serving's and each fc
+             shape, median times from CUDA events and the profiler beside
+             the byte bound and the plain version's time;
 4. serve   — the slice's load through ``repro_torch.serve.Server`` at the
              2layer-snn fc width (784×100, rule itp, depth 7, 8 sessions,
              32 requests, max_batch 8, t_steps 16): once on the packed path
@@ -81,7 +83,9 @@ printed on lines of its own:
              must be ≥ 0.25 and within 0.05 of the ``itp`` run's; one profiled
              DCSNN batch each for itp and exact;
 9. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
-   kernels 7-10), the ``nvidia-smi`` name/power-limit line, and the final
+   kernels 7-10; a dense kernel's launches summed over serving and the fc
+   layers of the training runs, its times at the shape where most of them
+   fall), the ``nvidia-smi`` name/power-limit line, and the final
    ``{"ok": true, ...}`` line.
 
 Any mismatch or exception ends the script with a non-zero exit.  Without a
@@ -106,7 +110,8 @@ SERVE_CFG = dict(n_pre=784, n_post=100, rule="itp", depth=7)
 SERVE_LOAD = dict(sessions=8, requests=32)
 SERVE_SCFG = dict(max_batch=8, t_steps=16, theta_plus=0.05)
 KERNEL_CASES = [  # (lanes, n_pre, n_post, depth)
-    (8, 784, 100, 7), (8, 784, 100, 1), (8, 784, 100, 8), (1, 200, 72, 7)]
+    (8, 784, 100, 7), (8, 784, 100, 1), (8, 784, 100, 8), (1, 200, 72, 7),
+    (16, 784, 100, 7), (16, 600, 128, 7), (16, 480, 64, 7)]
 COUNTER_WINDOWS = ("exact", "linear", "imstdp")
 REPLACES = {
     "itp_stdp_update_packed": "src/repro/kernels/itp_stdp/kernel.py:177",
@@ -207,27 +212,29 @@ def _time_ms(fn, *, reps: int = 30, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_name: str, *, n: int = 50) -> float | None:
+def _device_ms(fn, kernel_name: str, *, n: int = 50, tries: int = 3) -> float | None:
     """Device time per call of ``fn`` (one launch of a kernel whose name
-    contains ``kernel_name``), from a profiler trace; None unless the trace
-    holds exactly ``n`` such launches (a trace that lost events would read
-    low)."""
+    contains ``kernel_name``), from a profiler trace; None unless a trace
+    holds exactly ``n`` such launches in one of ``tries`` attempts (a trace
+    that lost events would read low)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for row in prof.key_averages():
-        if kernel_name in row.key:
-            total_us += getattr(row, "device_time_total", 0.0) or getattr(
-                row, "cuda_time_total", 0.0)
-            count += row.count
-    _phase("profile", f"{kernel_name}: the trace holds {count} of "
-           f"{n} launches")
-    return total_us / n / 1e3 if count == n else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for row in prof.key_averages():
+            if kernel_name in row.key:
+                total_us += getattr(row, "device_time_total", 0.0) or getattr(
+                    row, "cuda_time_total", 0.0)
+                count += row.count
+        _phase("profile", f"{kernel_name}: the trace holds {count} of {n} launches")
+        if count == n:
+            return total_us / n / 1e3
+    return None
 
 
 def _bound(lanes: int, n_pre: int, n_post: int, depth: int, packed: bool
@@ -296,7 +303,9 @@ def phase_kernels(device) -> dict:
                 report.setdefault(name, {"max_abs_err": 0.0})
                 report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
 
-        if (lanes, n_pre, n_post, depth) == KERNEL_CASES[0]:
+        case = next((c for c, shape in COUNTER_FC_CASES.items()
+                     if shape == (lanes, n_pre, n_post)), None)
+        if case is not None and depth == COUNTER_DEPTH:
             kw = dict(nearest=True, eta=1.0 / 16.0, w_min=0.0, w_max=1.0)
             timed = {
                 "itp_stdp_update_packed": (
@@ -310,19 +319,11 @@ def phase_kernels(device) -> dict:
                     lambda: R.itp_stdp_update_ref(w, pre_s, post_s, pre_b, post_b, *po2, **kw),
                     False),
             }
+            what = f"{case} {lanes}x{n_pre}x{n_post} depth={depth}"
             for name, (kern, plain, is_packed) in timed.items():
-                ms = _time_ms(kern)
-                plain_ms = _time_ms(plain, reps=10, inner=5)
-                bound_ms, bound_by = _bound(lanes, n_pre, n_post, depth, is_packed)
-                device_ms = _device_ms(kern, "itp_stdp_kernel")
-                report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, device_ms=device_ms,
-                                    shape=f"{lanes}x{n_pre}x{n_post} depth={depth}")
-                dev_txt = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
-                _phase("kernels", f"{name} {lanes}x{n_pre}x{n_post} depth={depth}: "
-                       f"{ms:.5f} ms/call (CUDA events), kernel alone {dev_txt} "
-                       f"(profiler), bound {bound_ms:.5f} ms ({bound_by}), plain "
-                       f"{plain_ms:.5f} ms")
+                bound = _bound(lanes, n_pre, n_post, depth, is_packed)
+                t = _timed(name, what, kern, plain, bound, "itp_stdp_kernel", phase="kernels")
+                report[name].setdefault("cases", {})[case] = dict(t, shape=what)
     return report
 
 
@@ -703,8 +704,8 @@ def phase_counter_kernels(device) -> dict:
                                                           lut=lut, **kw),
                        _counter_bound(lanes, n_pre, n_post, depth, window),
                        "counter_stdp_kernel")
-            if case == "serving" and depth == COUNTER_DEPTH:
-                rep.update(t, shape=what)
+            if depth == COUNTER_DEPTH:
+                rep.setdefault("cases", {})[case] = dict(t, shape=what)
         if case == "serving" and depth == COUNTER_DEPTH:
             # ITP against the counter datapath at one shape: kernel 1 on the
             # same weights and spikes, fed random history words
@@ -717,8 +718,8 @@ def phase_counter_kernels(device) -> dict:
                                                           depth=depth, eta=1.0 / 16.0),
                          None, _bound(lanes, n_pre, n_post, depth, True),
                          "itp_stdp_kernel")
-            _ratio_line("kernel 5 (exact) / kernel 1", report["counter_stdp_update[exact]"],
-                        itp)
+            _ratio_line("kernel 5 (exact) / kernel 1",
+                        report["counter_stdp_update[exact]"]["cases"]["serving"], itp)
 
     conv = [(layer, shape, COUNTER_DEPTH) for layer, shape in CONV_CASES.items()]
     conv.append(("DCSNN conv1", CONV_CASES["DCSNN conv1"], COUNTER_DEEP))
@@ -1076,15 +1077,18 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     batches = [b["spikes"].to(device) for b in source.train_batches(0)]
     flt = dataclasses.replace(cfg, quantise=False)
     st_p, cnt_p = _run_batches(flt, batches, tcfg.batch, device)
-    unpacked_launches, same_u = None, True
+    unpacked_launches, unpacked_fc, same_u = None, 0, True
     if not counter_rule:
         for fn in counters.values():
             fn.launches = 0
         st_u, cnt_u = _run_batches(dataclasses.replace(flt, packed_history=False), batches,
                                    tcfg.batch, device)
         unpacked_launches = counters["itp_stdp_conv_delta"].launches
-        if unpacked_launches != conv_layers * tcfg.t_steps * len(batches):
-            raise SystemExit(f"{net}: {unpacked_launches} unpacked conv launches")
+        unpacked_fc = counters["itp_stdp_update"].launches
+        if (unpacked_launches != conv_layers * tcfg.t_steps * len(batches)
+                or unpacked_fc != tcfg.t_steps * len(batches)):
+            raise SystemExit(f"{net}: {unpacked_launches} unpacked conv and {unpacked_fc} "
+                             f"unpacked fc launches")
         same_u = (all(torch.equal(a, b) for a, b in zip(cnt_p, cnt_u))
                   and all(torch.equal(a, b) for a, b in zip(st_p.weights, st_u.weights)))
     st_r, cnt_r = _run_batches(dataclasses.replace(flt, backend="reference"), batches,
@@ -1103,6 +1107,7 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     if not (same_u and counts_ok and w_ok and spikes > 0):
         raise SystemExit(f"{net}: fused vs reference / packed vs unpacked parity failed")
     return {"launches": launches, "unpacked_launches": unpacked_launches,
+            "unpacked_fc_launches": unpacked_fc,
             "sim_steps_per_s": steps / res["train_seconds"],
             "samples_per_s": samples / res["train_seconds"],
             "accuracy_curve": res["accuracy_curve"]}
@@ -1202,6 +1207,30 @@ def phase_train(device) -> dict:
     return out
 
 
+def _dense_launches(serve: dict, train: dict, kernels: dict) -> dict:
+    """A dense kernel launches in serving and once per step in every fc
+    layer of the training runs (the batch as lanes): its launches by shape,
+    summed.  Each dense kernel's report takes its times at the shape where
+    most of its launches fall.  Returns the summed launches."""
+    fc_case = {"6layer-dcsnn": "DCSNN fc", "5layer-csnn": "CSNN fc",
+               "2layer-snn": "2layer-snn fc"}
+    dense = {name: {"serving": n} for name, n in serve["launches"].items()}
+    for run, r in train.items():
+        net, _, rule = run.partition(" ")
+        counts = ({f"counter_stdp_update[{rule}]": r["launches"]["counter_stdp_update"]} if rule
+                  else {"itp_stdp_update_packed": r["launches"]["itp_stdp_update_packed"],
+                        "itp_stdp_update": r.get("unpacked_fc_launches", 0)})
+        for name, n in counts.items():
+            if n:
+                by_shape = dense.setdefault(name, {})
+                by_shape[fc_case[net]] = by_shape.get(fc_case[net], 0) + n
+    for name, by_shape in dense.items():
+        most = max(by_shape, key=by_shape.get)
+        kernels[name].update(kernels[name]["cases"][most], launches_by_shape=by_shape)
+        _phase("kernels", f"{name}: launches {by_shape}; timed at {most}")
+    return {name: sum(by_shape.values()) for name, by_shape in dense.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1242,20 +1271,17 @@ def main() -> int:
     kernels.update(side["kernels"])
     train = phase_train(device)
     dcsnn = train["6layer-dcsnn"]
-    # launches: each kernel's count from the run of its main path (serving for
-    # the dense kernels, DCSNN training for the conv kernels; for the counter
-    # windows the exact serving load and DCSNN run, the linear CSNN run and
-    # the imstdp DCSNN run)
-    launches = dict(serve["launches"],
-                    itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
+    # launches: each kernel's count from the runs of its main path (the conv
+    # kernels DCSNN training, kernel 4 its unpacked run; the counter conv
+    # windows the exact DCSNN, linear CSNN and imstdp DCSNN runs)
+    launches = _dense_launches(serve, train, kernels)
+    launches.update(itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
                     itp_stdp_conv_delta=dcsnn["unpacked_launches"])
     for window, run in (("exact", "6layer-dcsnn exact"), ("linear", "5layer-csnn linear"),
                         ("imstdp", "6layer-dcsnn imstdp")):
-        counts = train[run]["launches"]
-        launches[f"counter_conv_delta[{window}]"] = counts["counter_conv_delta"]
-        launches.setdefault(f"counter_stdp_update[{window}]", counts["counter_stdp_update"])
+        launches[f"counter_conv_delta[{window}]"] = train[run]["launches"]["counter_conv_delta"]
     launches.update(side["launches"])   # the neuron datapath and ITP-AdamW runs
-    if not all(launches[name] > 0 for name in kernels):
+    if not all(launches.get(name, 0) > 0 for name in kernels):
         raise SystemExit(f"a kernel of the path was never launched: {launches}")
     for net, r in train.items():
         _phase("train", f"{net}: {r['sim_steps_per_s']:.1f} sim-steps/s")
@@ -1265,7 +1291,8 @@ def main() -> int:
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-         "device_ms": k["device_ms"], "shape": k["shape"]}
+         "device_ms": k["device_ms"], "shape": k["shape"],
+         **({"launches_by_shape": k["launches_by_shape"]} if "launches_by_shape" in k else {})}
         for name, k in kernels.items()]}
     bad = [k["name"] for k in line["kernels"]
            if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms"))]

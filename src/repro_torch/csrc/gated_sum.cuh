@@ -9,8 +9,10 @@
 //
 // (potentiate where post fired alone, depress where pre fired alone).  The
 // kernels differ only in how an element's magnitude is read; each builds a
-// functor with pre(at, plane) / post(at, plane) in its kernel body and hands
-// it to contract().
+// functor in its kernel body and hands it to contract():
+// pre(at, plane, k0, nk, acc, count) / post(...) add planes k0 .. k0+nk-1 of
+// the element at `at` (plane k0 + i at at[i * plane]) to the running read
+// (acc, count) and return the new acc; a word or counter is one chunk.
 //
 // What bounds it.  The bytes are few (the DCSNN conv1 call moves 1.7 MB, half
 // a microsecond at the card's memory rate) and the double adds are few
@@ -31,7 +33,16 @@
 //     parallel.
 //   * Rows.  A block stages tm rows at a time: cp.async copies the next tile's
 //     raw spikes and history words into one shared buffer while the current
-//     one is summed from the other.  Each element's gated magnitude,
+//     one is summed from the other.  Only the output tile's own k- and
+//     c-range of each row is staged: a side whose tile spans all its columns
+//     (every paper-net layer) as one range of rows, otherwise row by row,
+//     each row in a slot of its own.  Float32 bitplanes are staged in depth
+//     chunks of at most MAX_PLANES planes; an element's read runs over the
+//     chunks in the order k = 0 .. depth-1, its running sum and set-bit count
+//     kept in shared memory between them (float32, exact), so the result is
+//     the one-pass read bit for bit.  So the staged bytes depend on neither
+//     K + C nor depth: the smallest tile (RPT rows, one plane) fits any
+//     shape.  Each element's gated magnitude,
 //     (1-pre)*pre_mag and (1-post)*post_mag, is computed once per tile into
 //     shared memory beside its spike.  Each lane then sums RPT rows per pass,
 //     a fixed unrolled trip count; rows past M, and k, c past K, C, are
@@ -70,6 +81,7 @@
 #include <mutex>
 #include <tuple>
 
+
 namespace gated {
 
 constexpr int THREADS = 256;
@@ -83,6 +95,8 @@ constexpr int MAX_CG = 16;         // channel micro-tiles per output tile (64 ch
 constexpr int MAX_LANES = 16;      // row lanes per micro-tile (one register tree)
 constexpr int MIN_ROWS = 8;        // rows per split at least
 constexpr int MAX_BLOCKS = 1024;   // grid cap (co-residency caps it lower)
+constexpr int MAX_PLANES = 8;      // bitplanes per depth chunk
+constexpr int MAX_PARAMS = 2048;   // parameter floats per side staged in shared memory
 constexpr long MAX_SMEM = 227 * 1024;
 
 // Launch plan, computed on the host and passed by value.
@@ -92,8 +106,13 @@ struct Plan {
   int lanes, groups, tm;   // row lanes; passes per tile; rows per tile = lanes*RPT*groups
   int tiles_k, tiles_c;    // output tiles
   int slots, splits, rows; // grid = splits x slots; rows per split
-  int planes, params;      // history planes per side (1 or depth); parameter floats per side
-  // dynamic shared memory (bytes): two raw stages, the magnitudes, the parameters
+  int depth, planes, chunks;  // history planes per side (1 or depth); planes staged per
+                              // step (a depth chunk); chunks per row tile
+  int params;              // parameter floats per side in shared memory (0: read in place)
+  // dynamic shared memory (bytes): two raw stages, the magnitudes, the parameters;
+  // a side staged row by row puts each row in a slot of *_slot (spikes) or
+  // *_hslot (a history plane) bytes (0: the side is staged as one range)
+  int pre_slot, pre_hslot, post_slot, post_hslot;
   int post_at, pre_hist_at, post_hist_at, pre_plane, post_plane, stage, mag_at, param_at, smem;
 };
 
@@ -137,11 +156,36 @@ __device__ __forceinline__ void copy_range(char* dst, const void* src, int n) {
   }
 }
 
+// The same for `rows` rows of n bytes each, row r at src + r * row_bytes:
+// as one range when the rows are contiguous (full), else row r into its own
+// slot, byte i at dst + r * slot + head<G>(row r) + i.
+template <int G>
+__device__ __forceinline__ void copy_rows(char* dst, const void* src, int rows, int n,
+                                          long row_bytes, bool full, int slot) {
+  if (full) {
+    copy_range<G>(dst, src, rows * n);
+    return;
+  }
+  if (n <= 0) return;
+  const int per_row = (2 * G - 2 + n) / G;   // granules a row can span
+  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
+    const int r = i / per_row, g = i - r * per_row;
+    const char* row = static_cast<const char*>(src) + r * row_bytes;
+    const int left = head<G>(row) + n - G * g;
+    if (left > 0) {
+      cp_async<G>(dst + r * slot + G * g, row - head<G>(row) + G * g, left < G ? left : G);
+    }
+  }
+}
+
 // The kernel body: block b = (slot, split) sums rows [split*rows, +rows) into
 // its output tiles' partials; after the grid sync every block sums splits.
 // Hist is the history element (uint8_t word or float bitplane); plane d of a
-// side lies d*M*X elements after its start.
-template <class Hist, class Mag>
+// side lies d*M*X elements after its start.  GENERAL = false is the body for
+// a plan whose tiles span every column on both sides in one depth chunk
+// (every paper-net layer): the row-slot and chunk logic folds away, so it
+// keeps the registers of the one-range, one-pass staging (no spill).
+template <bool GENERAL, class Hist, class Mag>
 __device__ __forceinline__ void contract(float* __restrict__ out, double* __restrict__ partial,
                                          const float* __restrict__ pre,
                                          const float* __restrict__ post,
@@ -160,11 +204,16 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
   const int split = blockIdx.x % p.splits, slot = blockIdx.x / p.splits;
   const int m_begin = min(split * p.rows, M), m_end = min(m_begin + p.rows, M);
   const int row_tiles = (m_end - m_begin + p.tm - 1) / p.tm;
+  const int chunks = GENERAL ? p.chunks : 1;
+  const int steps = row_tiles * chunks;   // (row tile, depth chunk) in order
   const int pre_plane = p.pre_plane / static_cast<int>(sizeof(Hist));
   const int post_plane = p.post_plane / static_cast<int>(sizeof(Hist));
+  const bool pre_full = !GENERAL || p.pre_slot == 0;
+  const bool post_full = !GENERAL || p.post_slot == 0;
   // the magnitudes, a row's k = RK*kg + q at [row][q][kg] (and c likewise),
   // and the lanes' sums at [slot][thread], so the threads of a warp touch
-  // neighbouring words: no bank conflicts
+  // neighbouring words: no bank conflicts.  Between depth chunks an
+  // element's slot holds its running read as a float2 (acc, count).
   double2* s_pre_side = reinterpret_cast<double2*>(smem + p.mag_at);  // {ltp, -pre}
   double2* s_post_side = s_pre_side + p.tm * tkp;                     // {post, ltd}
   double* s_red = reinterpret_cast<double*>(smem + p.mag_at);
@@ -173,23 +222,32 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
   // History planes are copied in 16-byte granules when every plane has the
   // same head (one plane of words, or M*X a multiple of 4 floats), else in
   // 4-byte ones (float planes then have no head at all).
-  const bool pre_wide = p.planes == 1 || static_cast<long>(M) * K % 4 == 0;
-  const bool post_wide = p.planes == 1 || static_cast<long>(M) * C % 4 == 0;
-
-  auto stage = [&](int s, int m0) {  // cp.async rows [m0, m0+tm) into raw stage s
+  const bool pre_wide = p.depth == 1 || static_cast<long>(M) * K % 4 == 0;
+  const bool post_wide = p.depth == 1 || static_cast<long>(M) * C % 4 == 0;
+  // cp.async a step's rows of the output tile at (k0, c0) into raw stage s
+  auto stage = [&](int s, int step, int k0, int c0) {
     char* st = smem + s * p.stage;
+    const int it = step / chunks, ch = step - it * chunks;
+    const int m0 = m_begin + it * p.tm;
     const int rows = min(p.tm, m_end - m0);
-    copy_range(st, pre + static_cast<size_t>(m0) * K, rows * K * 4);
-    copy_range(st + p.post_at, post + static_cast<size_t>(m0) * C, rows * C * 4);
-    for (int d = 0; d < p.planes; ++d) {   // every plane at the same offset
-      const Hist* pre_h = pre_hist + (static_cast<size_t>(d) * M + m0) * K;
-      const Hist* post_h = post_hist + (static_cast<size_t>(d) * M + m0) * C;
+    const int kn = GENERAL ? min(tkp, K - k0) : K, cn = GENERAL ? min(tcp, C - c0) : C;
+    if (ch == chunks - 1) {   // the spikes, with the last depth chunk
+      copy_rows<16>(st, pre + static_cast<size_t>(m0) * K + k0, rows, kn * 4, 4L * K, pre_full,
+                    p.pre_slot);
+      copy_rows<16>(st + p.post_at, post + static_cast<size_t>(m0) * C + c0, rows, cn * 4,
+                    4L * C, post_full, p.post_slot);
+    }
+    const int d0 = ch * p.planes, nd = min(p.planes, p.depth - d0);
+    for (int d = 0; d < nd; ++d) {   // every plane at the same offset
+      const Hist* pre_h = pre_hist + (static_cast<size_t>(d0 + d) * M + m0) * K + k0;
+      const Hist* post_h = post_hist + (static_cast<size_t>(d0 + d) * M + m0) * C + c0;
       char* pre_dst = st + p.pre_hist_at + d * p.pre_plane;
       char* post_dst = st + p.post_hist_at + d * p.post_plane;
-      pre_wide ? copy_range<16>(pre_dst, pre_h, rows * K * sizeof(Hist))
-               : copy_range<4>(pre_dst, pre_h, rows * K * sizeof(Hist));
-      post_wide ? copy_range<16>(post_dst, post_h, rows * C * sizeof(Hist))
-                : copy_range<4>(post_dst, post_h, rows * C * sizeof(Hist));
+      constexpr long H = sizeof(Hist);
+      pre_wide ? copy_rows<16>(pre_dst, pre_h, rows, kn * H, H * K, pre_full, p.pre_hslot)
+               : copy_rows<4>(pre_dst, pre_h, rows, kn * H, H * K, pre_full, p.pre_hslot);
+      post_wide ? copy_rows<16>(post_dst, post_h, rows, cn * H, H * C, post_full, p.post_hslot)
+                : copy_rows<4>(post_dst, post_h, rows, cn * H, H * C, post_full, p.post_hslot);
     }
   };
 
@@ -204,24 +262,28 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
   const int post_r0 = tid / tcp, post_x0 = tid - post_r0 * tcp;
   const int post_dr = THREADS / tcp, post_dx = THREADS - post_dr * tcp;
   for (int t = slot; t < p.tiles_k * p.tiles_c; t += p.slots) {
-    const int k0 = (t / p.tiles_c) * tkp, c0 = (t % p.tiles_c) * tcp;
+    const int k0 = GENERAL ? (t / p.tiles_c) * tkp : 0;   // one tile: all of K and C
+    const int c0 = GENERAL ? (t % p.tiles_c) * tcp : 0;
     double acc[RK][RC];
 #pragma unroll
     for (int a = 0; a < RK; ++a)
 #pragma unroll
       for (int b = 0; b < RC; ++b) acc[a][b] = 0.0;
 
-    if (row_tiles > 0) stage(0, m_begin);
+    if (steps > 0) stage(0, 0, k0, c0);
     cp_async_commit();
-    for (int it = 0; it < row_tiles; ++it) {
+    for (int step = 0; step < steps; ++step) {
+      const int it = step / chunks, ch = step - it * chunks;
+      const bool last = ch == chunks - 1;
       const int m0 = m_begin + it * p.tm;
-      if (it + 1 < row_tiles) stage((it + 1) & 1, m0 + p.tm);
+      const int d0 = ch * p.planes, nd = min(p.planes, p.depth - d0);
+      if (step + 1 < steps) stage((step + 1) & 1, step + 1, k0, c0);
       cp_async_commit();
-      cp_async_wait_one();   // this tile's copies have landed
+      cp_async_wait_one();   // this step's copies have landed
       __syncthreads();
 
-      // each element's gated magnitude, once per tile
-      const char* st = smem + (it & 1) * p.stage;
+      // each element's gated magnitude, once per tile (over its depth chunks)
+      const char* st = smem + (step & 1) * p.stage;
       const float* r_pre =
           reinterpret_cast<const float*>(st + head(pre + static_cast<size_t>(m0) * K));
       const float* r_post = reinterpret_cast<const float*>(
@@ -235,15 +297,33 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
 #pragma unroll 1   // one element at a time: the accumulators stay in registers
       for (int e = tid, r = pre_r0, x = pre_x0; e < p.tm * tkp; e += THREADS) {
         const int k = k0 + x;
-        double2 v = make_double2(0.0, 0.0);
+        auto v = [&] { return s_pre_side + r * tkp + (x % RK) * p.nkg + x / RK; };
         if (m0 + r < m_end && k < K) {
-          const int i = r * K + k;
-          const float s = r_pre[i];
-          const float m = mag.pre(r_pre_hist + i, pre_plane);
-          const float g = __fmul_rn(__fsub_rn(1.0f, s), m);
-          v = make_double2(static_cast<double>(g), -static_cast<double>(s));
+          float s;
+          float2 run = make_float2(0.0f, 0.0f);
+          if (ch > 0) run = *reinterpret_cast<const float2*>(v());
+          if (pre_full) {
+            const int i = r * K + k;
+            s = last ? r_pre[i] : 0.0f;
+            run.x = mag.pre(r_pre_hist + i, pre_plane, d0, nd, run.x, run.y);
+          } else {   // a slot per row: its own head
+            const size_t row = static_cast<size_t>(m0 + r) * K + k0;
+            s = last ? reinterpret_cast<const float*>(st + r * p.pre_slot + head(pre + row))[x]
+                     : 0.0f;
+            const Hist* hp = reinterpret_cast<const Hist*>(
+                st + p.pre_hist_at + r * p.pre_hslot +
+                (pre_wide ? head<16>(pre_hist + row) : head<4>(pre_hist + row)));
+            run.x = mag.pre(hp + x, pre_plane, d0, nd, run.x, run.y);
+          }
+          if (last) {
+            const float g = __fmul_rn(__fsub_rn(1.0f, s), run.x);
+            *v() = make_double2(static_cast<double>(g), -static_cast<double>(s));
+          } else {
+            *reinterpret_cast<float2*>(v()) = run;
+          }
+        } else if (last) {
+          *v() = make_double2(0.0, 0.0);
         }
-        s_pre_side[r * tkp + (x % RK) * p.nkg + x / RK] = v;
         r += pre_dr;
         x += pre_dx;
         if (x >= tkp) {
@@ -254,15 +334,34 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
 #pragma unroll 1
       for (int e = tid, r = post_r0, x = post_x0; e < p.tm * tcp; e += THREADS) {
         const int c = c0 + x;
-        double2 v = make_double2(0.0, 0.0);
+        auto v = [&] { return s_post_side + r * tcp + (x % RC) * p.ncg + x / RC; };
         if (m0 + r < m_end && c < C) {
-          const int i = r * C + c;
-          const float s = r_post[i];
-          const float m = mag.post(r_post_hist + i, post_plane);
-          const float g = __fmul_rn(__fsub_rn(1.0f, s), m);
-          v = make_double2(static_cast<double>(s), static_cast<double>(g));
+          float s;
+          float2 run = make_float2(0.0f, 0.0f);
+          if (ch > 0) run = *reinterpret_cast<const float2*>(v());
+          if (post_full) {
+            const int i = r * C + c;
+            s = last ? r_post[i] : 0.0f;
+            run.x = mag.post(r_post_hist + i, post_plane, d0, nd, run.x, run.y);
+          } else {
+            const size_t row = static_cast<size_t>(m0 + r) * C + c0;
+            s = last ? reinterpret_cast<const float*>(st + p.post_at + r * p.post_slot +
+                                                      head(post + row))[x]
+                     : 0.0f;
+            const Hist* hp = reinterpret_cast<const Hist*>(
+                st + p.post_hist_at + r * p.post_hslot +
+                (post_wide ? head<16>(post_hist + row) : head<4>(post_hist + row)));
+            run.x = mag.post(hp + x, post_plane, d0, nd, run.x, run.y);
+          }
+          if (last) {
+            const float g = __fmul_rn(__fsub_rn(1.0f, s), run.x);
+            *v() = make_double2(static_cast<double>(s), static_cast<double>(g));
+          } else {
+            *reinterpret_cast<float2*>(v()) = run;
+          }
+        } else if (last) {
+          *v() = make_double2(0.0, 0.0);
         }
-        s_post_side[r * tcp + (x % RC) * p.ncg + x / RC] = v;
         r += post_dr;
         x += post_dx;
         if (x >= tcp) {
@@ -272,7 +371,7 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
       }
       __syncthreads();
 
-      if (active) {
+      if (active && last) {
         for (int g = 0; g < p.groups; ++g) {
 #pragma unroll
           for (int i = 0; i < RPT; ++i) {
@@ -371,19 +470,38 @@ inline int max_splits(int M, int K, int C) {
 }
 
 // Shared memory of the plan's tile (fills the layout fields); bytes or -1.
+// A side whose output tile spans all its columns stages a tile's rows as
+// one range (plus its head), otherwise each row's tile columns in a slot.
+// At most: tiles of 1024 + 4 columns (tkp + tcp), 4 rows, one plane and
+// MAX_PARAMS parameters take ~150 KB, so every shape has a tile that fits.
 inline long layout(Plan& p, int hist_bytes) {
   const long tm = p.tm;
-  const long pre_plane = align16(tm * p.K * hist_bytes + 16);   // + a chunk's head
-  const long post_plane = align16(tm * p.C * hist_bytes + 16);
-  const long post_at = align16(tm * p.K * 4 + 16);
-  const long pre_hist_at = post_at + align16(tm * p.C * 4 + 16);
+  const int tkp = RK * p.nkg, tcp = RC * p.ncg;
+  long pre_slot = 0, pre_hslot = 0, post_slot = 0, post_hslot = 0;
+  auto rows_bytes = [tm](bool full, int x, int elem, long* slot) {
+    if (full) return static_cast<long>(align16(tm * x * elem + 16));   // + a range's head
+    *slot = align16(static_cast<long>(x) * elem + 16);
+    return tm * *slot;
+  };
+  const bool pre_full = p.tiles_k == 1, post_full = p.tiles_c == 1;
+  const int kx = pre_full ? p.K : tkp, cx = post_full ? p.C : tcp;
+  const long pre_sp = rows_bytes(pre_full, kx, 4, &pre_slot);
+  const long post_sp = rows_bytes(post_full, cx, 4, &post_slot);
+  const long pre_plane = rows_bytes(pre_full, kx, hist_bytes, &pre_hslot);
+  const long post_plane = rows_bytes(post_full, cx, hist_bytes, &post_hslot);
+  const long post_at = pre_sp;
+  const long pre_hist_at = post_at + post_sp;
   const long post_hist_at = pre_hist_at + p.planes * pre_plane;
   const long stage = post_hist_at + p.planes * post_plane;
-  const long mag = tm * (RK * p.nkg + RC * p.ncg) * 16;
+  const long mag = tm * (tkp + tcp) * 16;
   const long red = static_cast<long>(p.lanes) * p.nkg * p.ncg * RK * RC * 8;
   const long param_at = 2 * stage + (mag > red ? mag : red);
   const long smem = param_at + align16(2L * 4 * p.params);
   if (smem > MAX_SMEM) return -1;
+  p.pre_slot = static_cast<int>(pre_slot);
+  p.pre_hslot = static_cast<int>(pre_hslot);
+  p.post_slot = static_cast<int>(post_slot);
+  p.post_hslot = static_cast<int>(post_hslot);
   p.pre_plane = static_cast<int>(pre_plane);
   p.post_plane = static_cast<int>(post_plane);
   p.post_at = static_cast<int>(post_at);
@@ -425,25 +543,34 @@ cudaError_t co_resident(Kernel kernel, int device, int smem, int* blocks) {
   return cudaSuccess;
 }
 
-// Plans and launches `kernel(args..., plan)` on `stream` as one cooperative
-// grid.  hist_bytes: 1 (uint8 words) or 4 (float32 bitplanes); planes: 1 or
-// depth; params: parameter floats per side staged in shared memory.  Returns
-// the cudaError_t (0 = success); K or C of 0 launches nothing.  A shape whose
-// smallest row tile (RPT rows of every operand, twice) does not fit in shared
-// memory, (K + C) * (4 + planes * hist_bytes) above ~14 KB, is refused with
-// cudaErrorInvalidValue.
+// Plans and launches kernel(args..., plan) on `stream` as one cooperative
+// grid: `fast` (GENERAL = false) when the output tiles span all of K and C,
+// the depth is one chunk and the parameters are staged, else `general`.
+// hist_bytes: 1 (uint8 words) or 4 (float32 bitplanes); planes: 1 or depth;
+// params: parameter floats per side, staged in shared memory up to
+// MAX_PARAMS (past it plan.params is 0 and the kernel reads them in place).
+// Returns the cudaError_t (0 = success); K or C of 0 launches nothing.  The
+// staged tile shrinks (rows per pass, then row lanes, then planes per depth
+// chunk) until it fits, and the smallest always does, so only a wrong
+// operand (a negative size, no history plane, a history element of another
+// width) is refused, with cudaErrorInvalidValue.
 template <class... KArgs, class... Args>
-int launch(void (*kernel)(KArgs...), int M, int K, int C, int hist_bytes, int planes,
-           int params, int device, void* stream, Args... args) {
-  if (K <= 0 || C <= 0) return 0;
+int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int C,
+           int hist_bytes, int planes, int params, int device, void* stream, Args... args) {
+  if (M < 0 || K < 0 || C < 0 || planes < 1 || params < 0 ||
+      (hist_bytes != 1 && hist_bytes != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (K == 0 || C == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Plan p{};
   p.M = M;
   p.K = K;
   p.C = C;
-  p.planes = planes;
-  p.params = params;
+  p.depth = planes;
+  p.planes = planes < MAX_PLANES ? planes : MAX_PLANES;
+  p.params = params <= MAX_PARAMS ? params : 0;
   tile_shape(K, C, &p.nkg, &p.ncg, &p.tiles_k, &p.tiles_c);
   p.lanes = THREADS / (p.nkg * p.ncg) < MAX_LANES ? THREADS / (p.nkg * p.ncg) : MAX_LANES;
   p.groups = TM_TARGET / (p.lanes * RPT) > 1 ? TM_TARGET / (p.lanes * RPT) : 1;
@@ -453,11 +580,16 @@ int launch(void (*kernel)(KArgs...), int M, int K, int C, int hist_bytes, int pl
       --p.groups;
     } else if (p.lanes > 1) {
       --p.lanes;
-    } else {
+    } else if (p.planes > 1) {
+      --p.planes;
+    } else {   // unreachable: the least tile fits (layout)
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.tm = p.lanes * RPT * p.groups;
   }
+  p.chunks = ceil_div(p.depth, p.planes);
+  const bool one_pass = p.tiles_k == 1 && p.tiles_c == 1 && p.chunks == 1 && p.params == params;
+  void (*kernel)(KArgs...) = one_pass ? fast : general;
   int resident = 0;
   err = co_resident(kernel, device, p.smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);

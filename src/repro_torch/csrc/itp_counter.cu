@@ -33,12 +33,18 @@
 //
 // counter_stdp_update.  Bound: memory.  Each synapse's weight is read and
 // written once as float32 (8 B); the words, spikes and table are O(n).  The
-// per-pair window adds a double exp (exact) or a few float ops per synapse,
-// below the byte time at the shapes the nets use.  Design as itp_stdp.cu:
-// one thread per (lane, i, j) synapse, a block of TILE_PRE rows x TILE_POST
-// columns of one lane's w, a warp along the contiguous post axis (coalesced
-// w loads and stores), all lanes in one launch, ragged edges masked here.
-// Each thread reads its w element before writing it, so w_out may alias w.
+// per-pair window adds a double exp (exact) or a few float ops per synapse.
+// Design: the tile-streaming routine of dense_update.cuh, shared with
+// itp_stdp.cu (each thread's 16-byte vectors of w loaded into registers
+// before anything else, 16-byte stores, all lanes in one launch, ragged
+// edges masked in the kernel), with the window as the element magnitude.  A
+// block stages the raw counter words and spikes of its tile's neurons, not
+// their windows: every synapse evaluates both of its windows itself.  The
+// four synapses of a 16-byte vector share a row, so their LTP windows have
+// one argument; each evaluation first passes its counter through an empty
+// asm statement that nvcc must assume changes it, so no two evaluations are
+// merged and every synapse pays two, as the paper's per-pair datapath does.
+// w_out may alias w.
 //
 // counter_conv_delta.  The one-launch cooperative contraction of
 // gated_sum.cuh (the design of itp_stdp_conv.cu) with the counter window as
@@ -60,14 +66,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dense_update.cuh"
 #include "gated_sum.cuh"
 
 namespace {
 
-constexpr int TILE_POST = 32;  // columns per block: one warp along a w row
-constexpr int TILE_PRE = 8;    // rows per block
 constexpr int MAX_DEPTH = 255; // counter words are uint8
-constexpr int MAX_LANES = 65535;
+constexpr int SLOTS = 1;       // 16-byte vectors of w a thread (dense_update.cuh): the
+                               // windows are the work, so threads before bytes in flight
 
 enum Window { EXACT = 0, LINEAR = 1, IMSTDP = 2 };
 
@@ -94,53 +100,58 @@ __device__ __forceinline__ float window(unsigned t, const Side& s, int depth) {
   return __fmul_rn(mag, valid);
 }
 
-// Stage the (2, depth) table into shared memory and point the sides at it.
+// The counter words as dense::update's magnitude: a neuron's staged value is
+// its raw counter (as the bits of a float), its window evaluated per synapse.
 template <int W>
-__device__ __forceinline__ void stage_lut(float* s_lut, const float* __restrict__ lut,
-                                          int depth, int tid, int threads, Side& ltp,
-                                          Side& ltd) {
-  if constexpr (W == IMSTDP) {
-    for (int i = tid; i < 2 * depth; i += threads) s_lut[i] = lut[i];
-    __syncthreads();
-    ltp.lut = s_lut;
-    ltd.lut = s_lut + depth;
-  }
-}
+struct CounterWindow {
+  const float* pre_spike;
+  const float* post_spike;
+  const uint8_t* pre_words;
+  const uint8_t* post_words;
+  Side ltp, ltd;
+  int n_pre, n_post, depth;
 
-template <int W>
-__global__ void __launch_bounds__(TILE_PRE * TILE_POST)
+  __device__ __forceinline__ dense::Side pre(int lane, int i) const {
+    const size_t at = static_cast<size_t>(lane) * n_pre + i;
+    return {__uint_as_float(pre_words[at]), pre_spike[at]};
+  }
+  __device__ __forceinline__ dense::Side post(int lane, int j) const {
+    const size_t at = static_cast<size_t>(lane) * n_post + j;
+    return {__uint_as_float(post_words[at]), post_spike[at]};
+  }
+  // each call a distinct evaluation: the asm hides that two counters are equal
+  __device__ __forceinline__ float ltp_mag(float v) const {
+    unsigned t = __float_as_uint(v);
+    asm volatile("" : "+r"(t));
+    return window<W>(t, ltp, depth);
+  }
+  __device__ __forceinline__ float ltd_mag(float v) const {
+    unsigned t = __float_as_uint(v);
+    asm volatile("" : "+r"(t));
+    return window<W>(t, ltd, depth);
+  }
+};
+
+// 12 blocks an SM hold registers to 40: more threads, for the windows
+template <int W, int VEC>
+__global__ void __launch_bounds__(dense::THREADS, 12)
 counter_stdp_kernel(float* w_out, const float* w,  // may alias: in place
                     const float* __restrict__ pre_spike,
                     const float* __restrict__ post_spike,
                     const uint8_t* __restrict__ pre_words,
                     const uint8_t* __restrict__ post_words,
-                    const float* __restrict__ lut, Side ltp, Side ltd, int n_pre,
-                    int n_post, int depth, float eta, float w_min, float w_max) {
-  __shared__ float s_lut[2 * MAX_DEPTH];
-  stage_lut<W>(s_lut, lut, depth, threadIdx.y * TILE_POST + threadIdx.x,
-               TILE_PRE * TILE_POST, ltp, ltd);
-
-  const int lane = blockIdx.z;
-  const int i = blockIdx.y * TILE_PRE + threadIdx.y;
-  const int j = blockIdx.x * TILE_POST + threadIdx.x;
-  if (i >= n_pre || j >= n_post) return;
-
-  // per-pair delays from the counter words, and both windows
-  const size_t pre_at = static_cast<size_t>(lane) * n_pre + i;
-  const size_t post_at = static_cast<size_t>(lane) * n_post + j;
-  const float ltp_mag = window<W>(pre_words[pre_at], ltp, depth);
-  const float ltd_mag = window<W>(post_words[post_at], ltd, depth);
-
-  const bool pre_s = pre_spike[pre_at] != 0.0f;
-  const bool post_s = post_spike[post_at] != 0.0f;
-  const bool fire_xor = pre_s != post_s;
-  const float ltp_en = (fire_xor && post_s) ? 1.0f : 0.0f;  // post fired alone
-  const float ltd_en = (fire_xor && pre_s) ? 1.0f : 0.0f;   // pre fired alone
-  const float dw = __fsub_rn(__fmul_rn(ltp_en, ltp_mag), __fmul_rn(ltd_en, ltd_mag));
-
-  const size_t at = (static_cast<size_t>(lane) * n_pre + i) * n_post + j;
-  const float x = __fadd_rn(w[at], __fmul_rn(eta, dw));
-  w_out[at] = fminf(fmaxf(x, w_min), w_max);
+                    const float* __restrict__ lut, Side ltp, Side ltd, int depth, float eta,
+                    float w_min, float w_max, dense::Plan plan) {
+  extern __shared__ __align__(16) char smem[];
+  if constexpr (W == IMSTDP) {   // the (2, depth) table; read only after update's first sync
+    float* s_lut = reinterpret_cast<float*>(smem + plan.param_at);
+    for (int i = threadIdx.x; i < 2 * depth; i += dense::THREADS) s_lut[i] = lut[i];
+    ltp.lut = s_lut;
+    ltd.lut = s_lut + depth;
+  }
+  const CounterWindow<W> mag{pre_spike, post_spike, pre_words, post_words, ltp, ltd,
+                             plan.n_pre, plan.n_post, depth};
+  dense::update<SLOTS, VEC>(w_out, w, eta, w_min, w_max, plan, mag, smem);
 }
 
 // The windows of both counter-word operands as gated::contract's magnitude
@@ -149,16 +160,17 @@ template <int W>
 struct CounterRead {
   Side ltp, ltd;
   int depth;
-  __device__ __forceinline__ float pre(const uint8_t* at, int) const {
+  // a counter word is one chunk: its window, whatever the running read
+  __device__ __forceinline__ float pre(const uint8_t* at, int, int, int, float, float&) const {
     return window<W>(*at, ltp, depth);
   }
-  __device__ __forceinline__ float post(const uint8_t* at, int) const {
+  __device__ __forceinline__ float post(const uint8_t* at, int, int, int, float, float&) const {
     return window<W>(*at, ltd, depth);
   }
 };
 
-template <int W>
-__global__ void __launch_bounds__(gated::THREADS, gated::MIN_BLOCKS)
+template <int W, bool GENERAL>
+__global__ void __launch_bounds__(gated::THREADS, GENERAL ? 1 : gated::MIN_BLOCKS)
 counter_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
                           const float* __restrict__ pre, const float* __restrict__ post,
                           const uint8_t* __restrict__ pre_words,
@@ -171,7 +183,7 @@ counter_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
   ltp.lut = s_lut;
   ltd.lut = s_lut + depth;
   const CounterRead<W> mag{ltp, ltd, depth};
-  gated::contract(out, partial, pre, post, pre_words, post_words, lut, lut + depth, plan,
+  gated::contract<GENERAL>(out, partial, pre, post, pre_words, post_words, lut, lut + depth, plan,
                   mag, smem);
 }
 
@@ -182,14 +194,11 @@ int launch_update(float* w_out, const float* w, const float* pre_spike,
                   const float* post_spike, const uint8_t* pre_words,
                   const uint8_t* post_words, const float* lut, int lanes, int n_pre,
                   int n_post, int depth, Side ltp, Side ltd, float eta, float w_min,
-                  float w_max, cudaStream_t s) {
-  const dim3 block(TILE_POST, TILE_PRE);
-  const dim3 grid((n_post + TILE_POST - 1) / TILE_POST,
-                  (n_pre + TILE_PRE - 1) / TILE_PRE, lanes);
-  counter_stdp_kernel<W><<<grid, block, 0, s>>>(w_out, w, pre_spike, post_spike,
-                                                pre_words, post_words, lut, ltp, ltd,
-                                                n_pre, n_post, depth, eta, w_min, w_max);
-  return static_cast<int>(cudaGetLastError());
+                  float w_max, int device, void* stream) {
+  return dense::launch<SLOTS>(counter_stdp_kernel<W, 4>, counter_stdp_kernel<W, 1>, w_out, w,
+                              lanes, n_pre, n_post, W == IMSTDP ? depth : 0, device, stream,
+                              pre_spike, post_spike, pre_words, post_words, lut, ltp, ltd,
+                              depth, eta, w_min, w_max);
 }
 
 template <int W>
@@ -197,7 +206,8 @@ int launch_conv(float* out, double* partial, const float* pre, const float* post
                 const uint8_t* pre_words, const uint8_t* post_words, const float* lut,
                 int M, int K, int C, int depth, Side ltp, Side ltd, int device,
                 void* stream) {
-  return gated::launch(counter_conv_delta_kernel<W>, M, K, C, 1, 1, W == IMSTDP ? depth : 0,
+  return gated::launch(counter_conv_delta_kernel<W, false>, counter_conv_delta_kernel<W, true>,
+                       M, K, C, 1, 1, W == IMSTDP ? depth : 0,
                        device, stream, out, partial, pre, post, pre_words, post_words, lut,
                        ltp, ltd, depth);
 }
@@ -221,27 +231,23 @@ int counter_stdp_update(float* w_out, const float* w, const float* pre_spike,
                         float a_minus, float tau_plus, float tau_minus, float eta,
                         float w_min, float w_max, int device, void* stream) {
   if (lanes <= 0 || n_pre <= 0 || n_post <= 0) return 0;
-  if (depth < 1 || depth > MAX_DEPTH || lanes > MAX_LANES || window < EXACT ||
-      window > IMSTDP) {
+  if (depth < 1 || depth > MAX_DEPTH || window < EXACT || window > IMSTDP) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Side ltp = side(a_plus, tau_plus), ltd = side(a_minus, tau_minus);
   switch (window) {
     case EXACT:
-      return launch_update<EXACT>(w_out, w, pre_spike, post_spike, pre_words,
-                                  post_words, lut, lanes, n_pre, n_post, depth, ltp,
-                                  ltd, eta, w_min, w_max, s);
+      return launch_update<EXACT>(w_out, w, pre_spike, post_spike, pre_words, post_words,
+                                  lut, lanes, n_pre, n_post, depth, ltp, ltd, eta, w_min,
+                                  w_max, device, stream);
     case LINEAR:
-      return launch_update<LINEAR>(w_out, w, pre_spike, post_spike, pre_words,
-                                   post_words, lut, lanes, n_pre, n_post, depth, ltp,
-                                   ltd, eta, w_min, w_max, s);
+      return launch_update<LINEAR>(w_out, w, pre_spike, post_spike, pre_words, post_words,
+                                   lut, lanes, n_pre, n_post, depth, ltp, ltd, eta, w_min,
+                                   w_max, device, stream);
     default:
-      return launch_update<IMSTDP>(w_out, w, pre_spike, post_spike, pre_words,
-                                   post_words, lut, lanes, n_pre, n_post, depth, ltp,
-                                   ltd, eta, w_min, w_max, s);
+      return launch_update<IMSTDP>(w_out, w, pre_spike, post_spike, pre_words, post_words,
+                                   lut, lanes, n_pre, n_post, depth, ltp, ltd, eta, w_min,
+                                   w_max, device, stream);
   }
 }
 

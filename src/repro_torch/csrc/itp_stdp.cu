@@ -9,32 +9,31 @@
 // in the reference.
 //
 // Bound: memory.  Each synapse is read and written once as float32 (8 B)
-// against a handful of flops, far below the card's ~20 flop/B balance point
-// for float32; the per-neuron history (1 B word or 4*depth B of bitplanes)
-// and spikes are O(n), not O(n^2).  Design: one thread per (lane, i, j)
-// synapse, a block covering TILE_PRE rows x TILE_POST columns of one lane's
-// w, with a warp along the contiguous post axis so w loads and stores are
-// coalesced.  The block first reads the po2 magnitudes of its TILE_PRE pre
-// rows and TILE_POST post columns into shared memory (unpack
-// (word >> (7-k)) & 1, nearest mask = first set bit, po2 sum k = 0..depth-1
-// in float32), so each magnitude is computed once per block, not once per
-// synapse.  Ragged edges are masked here; the wrapper pads nothing.
+// against a handful of flops; the per-neuron history (1 B word or 4*depth B
+// of bitplanes) and spikes are O(n), not O(n^2).  Design: the tile-streaming
+// routine of dense_update.cuh (each thread's 16-byte vectors of w loaded
+// into registers before anything else, 16-byte stores), with the po2
+// register read as the element magnitude.  A block reads each neuron of its
+// tile once, while its w loads fly (unpack (word >> (7-k)) & 1, nearest mask
+// = first set bit, po2 sum k = 0..depth-1 in float32; bitplanes are loaded
+// in depth chunks of 8, each chunk's loads issued together, then summed in
+// order).  The magnitude is per neuron, the point of the paper: each
+// synapse reads two staged magnitudes.
 //
 // Arithmetic is written with __fmul_rn / __fadd_rn / __fsub_rn so nvcc
 // cannot contract it into FMAs: the plain PyTorch version rounds after every
 // multiply and add, and with an eta that is not a power of two an FMA would
 // round differently.
-//
-// In place: each thread reads its w element before writing the same
-// element, so w_out may alias w.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_update.cuh"
+
 namespace {
 
-constexpr int TILE_POST = 32;  // columns per block: one warp along a w row
-constexpr int TILE_PRE = 8;    // rows per block
+constexpr int CHUNK = 8;   // bitplanes loaded together
+constexpr int SLOTS = 4;   // 16-byte vectors of w a thread (dense_update.cuh)
 
 // One step of the register read: the nearest mask keeps a bit only while the
 // running count of set bits is exactly one (bits * (cumsum(bits) == 1)).
@@ -49,9 +48,9 @@ __device__ __forceinline__ float read_step(float acc, float& count, float bit,
 
 // po2 magnitude of neuron idx of one lane: k = 0 (newest) .. depth-1.
 template <bool PACKED>
-__device__ __forceinline__ float magnitude(const void* hist, int lane, int n,
-                                           int idx, const float* __restrict__ po2,
-                                           int depth, bool nearest) {
+__device__ __forceinline__ float magnitude(const void* hist, int lane, int n, int idx,
+                                           const float* __restrict__ po2, int depth,
+                                           bool nearest) {
   float acc = 0.0f;
   float count = 0.0f;
   if constexpr (PACKED) {
@@ -64,59 +63,62 @@ __device__ __forceinline__ float magnitude(const void* hist, int lane, int n,
   } else {
     const float* planes = static_cast<const float*>(hist) +
                           static_cast<size_t>(lane) * depth * n + idx;
-    for (int k = 0; k < depth; ++k) {
-      acc = read_step(acc, count, planes[static_cast<size_t>(k) * n], po2[k], nearest);
+    for (int k0 = 0; k0 < depth; k0 += CHUNK) {
+      float bits[CHUNK];
+#pragma unroll
+      for (int q = 0; q < CHUNK; ++q) {
+        bits[q] = k0 + q < depth ? planes[static_cast<size_t>(k0 + q) * n] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < CHUNK; ++q) {
+        if (k0 + q < depth) acc = read_step(acc, count, bits[q], po2[k0 + q], nearest);
+      }
     }
   }
   return acc;
 }
 
+// The register read as dense::update's magnitude: a neuron's staged value is
+// its po2 magnitude, read once per block.
 template <bool PACKED>
-__global__ void __launch_bounds__(TILE_PRE * TILE_POST)
+struct Po2Magnitude {
+  const float* pre_spike;
+  const float* post_spike;
+  const void* pre_hist;
+  const void* post_hist;
+  const float* po2_ltp;
+  const float* po2_ltd;
+  int n_pre, n_post, depth;
+  bool nearest;
+
+  __device__ __forceinline__ dense::Side pre(int lane, int i) const {
+    return {magnitude<PACKED>(pre_hist, lane, n_pre, i, po2_ltp, depth, nearest),
+            pre_spike[static_cast<size_t>(lane) * n_pre + i]};
+  }
+  __device__ __forceinline__ dense::Side post(int lane, int j) const {
+    return {magnitude<PACKED>(post_hist, lane, n_post, j, po2_ltd, depth, nearest),
+            post_spike[static_cast<size_t>(lane) * n_post + j]};
+  }
+  __device__ __forceinline__ float ltp_mag(float v) const { return v; }
+  __device__ __forceinline__ float ltd_mag(float v) const { return v; }
+};
+
+// 6 blocks an SM hold registers to 80: four float4 of w stay live through
+// the magnitude reads
+template <bool PACKED, int VEC>
+__global__ void __launch_bounds__(dense::THREADS, 6)
 itp_stdp_kernel(float* w_out, const float* w,  // may alias: in place
                 const float* __restrict__ pre_spike,
                 const float* __restrict__ post_spike,
                 const void* __restrict__ pre_hist,
                 const void* __restrict__ post_hist,
                 const float* __restrict__ po2_ltp,
-                const float* __restrict__ po2_ltd, int n_pre, int n_post,
-                int depth, int nearest, float eta, float w_min, float w_max) {
-  __shared__ float ltp_mag[TILE_PRE];
-  __shared__ float ltd_mag[TILE_POST];
-  const int lane = blockIdx.z;
-  const int i0 = blockIdx.y * TILE_PRE;
-  const int j0 = blockIdx.x * TILE_POST;
-  const int tid = threadIdx.y * TILE_POST + threadIdx.x;
-
-  if (tid < TILE_PRE) {
-    const int i = i0 + tid;
-    ltp_mag[tid] = (i < n_pre)
-        ? magnitude<PACKED>(pre_hist, lane, n_pre, i, po2_ltp, depth, nearest != 0)
-        : 0.0f;
-  } else if (tid < TILE_PRE + TILE_POST) {
-    const int c = tid - TILE_PRE;
-    const int j = j0 + c;
-    ltd_mag[c] = (j < n_post)
-        ? magnitude<PACKED>(post_hist, lane, n_post, j, po2_ltd, depth, nearest != 0)
-        : 0.0f;
-  }
-  __syncthreads();
-
-  const int i = i0 + threadIdx.y;
-  const int j = j0 + threadIdx.x;
-  if (i >= n_pre || j >= n_post) return;
-
-  const bool pre_s = pre_spike[static_cast<size_t>(lane) * n_pre + i] != 0.0f;
-  const bool post_s = post_spike[static_cast<size_t>(lane) * n_post + j] != 0.0f;
-  const bool fire_xor = pre_s != post_s;
-  const float ltp_en = (fire_xor && post_s) ? 1.0f : 0.0f;  // post fired alone
-  const float ltd_en = (fire_xor && pre_s) ? 1.0f : 0.0f;   // pre fired alone
-  const float dw = __fsub_rn(__fmul_rn(ltp_en, ltp_mag[threadIdx.y]),
-                             __fmul_rn(ltd_en, ltd_mag[threadIdx.x]));
-
-  const size_t at = (static_cast<size_t>(lane) * n_pre + i) * n_post + j;
-  const float x = __fadd_rn(w[at], __fmul_rn(eta, dw));
-  w_out[at] = fminf(fmaxf(x, w_min), w_max);
+                const float* __restrict__ po2_ltd, int depth, int nearest, float eta,
+                float w_min, float w_max, dense::Plan plan) {
+  extern __shared__ __align__(16) char smem[];
+  const Po2Magnitude<PACKED> mag{pre_spike, post_spike, pre_hist, post_hist, po2_ltp,
+                                 po2_ltd, plan.n_pre, plan.n_post, depth, nearest != 0};
+  dense::update<SLOTS, VEC>(w_out, w, eta, w_min, w_max, plan, mag, smem);
 }
 
 template <bool PACKED>
@@ -125,16 +127,10 @@ int launch(float* w_out, const float* w, const float* pre_spike,
            const float* po2_ltp, const float* po2_ltd, int lanes, int n_pre,
            int n_post, int depth, int nearest, float eta, float w_min,
            float w_max, int device, void* stream) {
-  if (lanes <= 0 || n_pre <= 0 || n_post <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(TILE_POST, TILE_PRE);
-  const dim3 grid((n_post + TILE_POST - 1) / TILE_POST,
-                  (n_pre + TILE_PRE - 1) / TILE_PRE, lanes);
-  itp_stdp_kernel<PACKED><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      w_out, w, pre_spike, post_spike, pre_hist, post_hist, po2_ltp, po2_ltd,
-      n_pre, n_post, depth, nearest, eta, w_min, w_max);
-  return static_cast<int>(cudaGetLastError());
+  return dense::launch<SLOTS>(itp_stdp_kernel<PACKED, 4>, itp_stdp_kernel<PACKED, 1>, w_out, w,
+                              lanes, n_pre, n_post, 0, device, stream, pre_spike, post_spike,
+                              pre_hist, post_hist, po2_ltp, po2_ltd, depth, nearest, eta,
+                              w_min, w_max);
 }
 
 }  // namespace

@@ -64,21 +64,27 @@ __device__ __forceinline__ void po2_step(float po2_k, float bit, bool nearest, f
 
 // The register read of both history operands as gated::contract's magnitude
 // functor, k = 0 (newest) .. depth-1: words (depth <= 8) hold slot k at bit
-// 7-k, bitplanes at at[k * plane], the po2 vectors in shared memory.  Under
-// nearest pairing a word's read is its newest live slot's po2 value (the MSB
-// mask of the paper's Fig. 11: a priority encoder, __clz), which is exactly
-// what the step-wise read reaches when the po2 values are finite: every other
-// step adds +-0.  Otherwise the read goes step by step.
-template <bool PACKED>
+// 7-k, one chunk; bitplanes arrive in depth chunks, plane k0 + i at
+// at[i * plane], and each chunk's steps continue the running read (acc,
+// count), so the chunked read is the one-pass read.  The po2 rows sit in
+// shared memory; the general body reads them in place past
+// gated::MAX_PARAMS.  The one-pass body holds one pointer, as registers are
+// tight there.  Under nearest pairing a word's read is its newest live
+// slot's po2 value (the MSB mask of the paper's Fig. 11: a priority encoder,
+// __clz), which is exactly what the step-wise read reaches when the po2
+// values are finite: every other step adds +-0.  Otherwise the read goes
+// step by step.
+template <bool PACKED, bool GENERAL>
 struct Po2Read {
-  const float* po2;   // (2, depth) in shared memory: LTP row, LTD row
+  const float* ltp;   // (depth,) po2 rows: LTP, and LTD at ltp + depth or at ltd
+  const float* ltd;
   int depth;
   bool nearest;
 
   template <int SIDE, class Hist>
-  __device__ __forceinline__ float read(const Hist* at, int plane) const {
-    const float* row = po2 + SIDE * depth;
-    float acc = 0.0f, count = 0.0f;
+  __device__ __forceinline__ float read(const Hist* at, int plane, int k0, int nk, float acc,
+                                        float& count) const {
+    const float* row = SIDE == 0 ? ltp : (GENERAL ? ltd : ltp + depth);
     if constexpr (PACKED) {
       const unsigned word = *reinterpret_cast<const uint8_t*>(at);
       if (nearest) {
@@ -92,27 +98,31 @@ struct Po2Read {
       }
     } else {
 #pragma unroll 1   // unrolled, the plane loads made ptxas spill
-      for (int k = 0; k < depth; ++k) {
-        po2_step(row[k], reinterpret_cast<const float*>(at)[k * plane], nearest, count, acc);
+      for (int k = 0; k < nk; ++k) {
+        po2_step(row[k0 + k], reinterpret_cast<const float*>(at)[k * plane], nearest, count,
+                 acc);
       }
     }
     return acc;
   }
   template <class Hist>
-  __device__ __forceinline__ float pre(const Hist* at, int plane) const {
-    return read<0>(at, plane);
+  __device__ __forceinline__ float pre(const Hist* at, int plane, int k0, int nk, float acc,
+                                       float& count) const {
+    return read<0>(at, plane, k0, nk, acc, count);
   }
   template <class Hist>
-  __device__ __forceinline__ float post(const Hist* at, int plane) const {
-    return read<1>(at, plane);
+  __device__ __forceinline__ float post(const Hist* at, int plane, int k0, int nk, float acc,
+                                        float& count) const {
+    return read<1>(at, plane, k0, nk, acc, count);
   }
 };
 
 // The operands arrive as plain kernel parameters and the functor is built
 // in the body (passed as a struct parameter, ptxas held the bitplane variant
-// at 32 registers with a spill).
-template <bool PACKED>
-__global__ void __launch_bounds__(gated::THREADS, gated::MIN_BLOCKS)
+// at 32 registers with a spill).  The general body (row slots, depth chunks)
+// runs one block an SM, so its extra state has the registers it needs.
+template <bool PACKED, bool GENERAL>
+__global__ void __launch_bounds__(gated::THREADS, GENERAL ? 1 : gated::MIN_BLOCKS)
 itp_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
                       const float* __restrict__ pre, const float* __restrict__ post,
                       const void* __restrict__ pre_hist, const void* __restrict__ post_hist,
@@ -121,9 +131,11 @@ itp_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
   using Hist = typename std::conditional<PACKED, uint8_t, float>::type;
   extern __shared__ __align__(16) char smem[];
   // the po2 vectors are staged into shared memory with the first rows
-  const Po2Read<PACKED> mag{reinterpret_cast<const float*>(smem + plan.param_at), depth,
-                            nearest != 0};
-  gated::contract(out, partial, pre, post, static_cast<const Hist*>(pre_hist),
+  const float* staged = reinterpret_cast<const float*>(smem + plan.param_at);
+  const bool in_smem = !GENERAL || plan.params > 0;
+  const Po2Read<PACKED, GENERAL> mag{in_smem ? staged : po2_ltp,
+                                     in_smem ? staged + depth : po2_ltd, depth, nearest != 0};
+  gated::contract<GENERAL>(out, partial, pre, post, static_cast<const Hist*>(pre_hist),
                   static_cast<const Hist*>(post_hist), po2_ltp, po2_ltd, plan, mag, smem);
 }
 
@@ -132,7 +144,8 @@ int launch(float* out, double* partial, const float* pre, const float* post,
            const void* pre_hist, const void* post_hist, const float* po2_ltp,
            const float* po2_ltd, int M, int K, int C, int depth, int nearest,
            int device, void* stream) {
-  return gated::launch(itp_conv_delta_kernel<PACKED>, M, K, C, PACKED ? 1 : 4,
+  return gated::launch(itp_conv_delta_kernel<PACKED, false>, itp_conv_delta_kernel<PACKED, true>,
+                       M, K, C, PACKED ? 1 : 4,
                        PACKED ? 1 : depth, depth, device, stream, out, partial, pre, post,
                        pre_hist, post_hist, po2_ltp, po2_ltd, depth, nearest);
 }

@@ -71,7 +71,13 @@ def _inputs(lanes, n_pre, n_post, depth, seed, device):
     return x
 
 
-@pytest.mark.parametrize("shape", ((2, 200, 72), (8, 784, 100), (1, 33, 5)))
+# serving's 8 sessions, the paper nets' fc layers at batch 16 (2layer-snn,
+# DCSNN, CSNN; the batch is the lane axis), ragged and odd widths
+DENSE_SHAPES = ((2, 200, 72), (8, 784, 100), (1, 33, 5), (16, 784, 100), (16, 600, 128),
+                (16, 480, 64))
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
 @pytest.mark.parametrize("depth", (1, 7, 8))
 def test_kernels_bit_equal_to_plain_versions(cuda, shape, depth):
     x = _inputs(*shape, depth, seed=depth, device=cuda)
@@ -101,6 +107,121 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         K.itp_stdp_update_packed(x["w"], x["pre_s"][:, :-1], x["post_s"], x["pre_w"],
                                  x["post_w"], *po2, depth=7)
+
+
+def _dense_calls(x, depth, po2, lut, kw):
+    """Kernel 1, 2 and 5 (each window) on one set of inputs: name -> (kernel
+    call, plain call, exact-window tolerance or None)."""
+    args = (x["w"], x["pre_s"], x["post_s"])
+    calls = {
+        "itp_stdp_update_packed": (
+            lambda: K.itp_stdp_update_packed(*args, x["pre_w"], x["post_w"], *po2, depth=depth,
+                                             **kw),
+            lambda: R.itp_stdp_update_packed_ref(*args, x["pre_w"], x["post_w"], *po2,
+                                                 depth=depth, **kw), None),
+        "itp_stdp_update": (
+            lambda: K.itp_stdp_update(*args, x["pre_b"], x["post_b"], *po2, **kw),
+            lambda: R.itp_stdp_update_ref(*args, x["pre_b"], x["post_b"], *po2, **kw), None),
+    }
+    for window in WINDOWS:
+        ckw = dict(_counter_kw(depth, window), **kw)
+        del ckw["nearest"]
+        calls[f"counter_stdp_update[{window}]"] = (
+            lambda ckw=ckw: NK.counter_stdp_update(*args, x["pre_t"], x["post_t"], lut, **ckw),
+            lambda ckw=ckw: NR.counter_stdp_update_ref(*args, x["pre_t"], x["post_t"], lut=lut,
+                                                       **ckw),
+            WINDOW_TOL if window == "exact" else None)
+    return calls
+
+
+def _dense_inputs(lanes, n_pre, n_post, depth, seed, device, *, offset=0):
+    """``_inputs`` plus counter words; with ``offset``, ``w`` is a contiguous
+    view ``offset`` floats into its storage (not 16-byte aligned)."""
+    x = _inputs(lanes, n_pre, n_post, depth, seed, device)
+    g = torch.Generator().manual_seed(seed + 1)
+    x["pre_t"] = _counters((lanes, n_pre), depth, g).to(device)
+    x["post_t"] = _counters((lanes, n_post), depth, g).to(device)
+    if offset:
+        flat = torch.empty(offset + x["w"].numel(), device=device)
+        x["w"] = flat[offset:].view(x["w"].shape).copy_(x["w"])
+    return x
+
+
+# w not 16-byte aligned (a view one float into its storage), n_post not a
+# multiple of 4 (the masked 4-byte path), rows longer than one strip's
+# columns (2,048: column blocks), one column (many rows a strip), and more
+# lanes than a grid's y or z could hold
+DENSE_EDGES = (((8, 784, 100), 1), ((3, 257, 101), 0), ((2, 5, 4100), 0), ((1, 3000, 1), 0),
+               ((70000, 2, 4), 0), ((2, 130, 70), 1))
+
+
+@pytest.mark.parametrize("shape,offset", DENSE_EDGES)
+def test_dense_kernels_take_unaligned_and_odd_shapes(cuda, shape, offset):
+    x = _dense_inputs(*shape, 7, seed=shape[2], device=cuda, offset=offset)
+    assert x["w"].data_ptr() % 16 == (4 * offset) % 16
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    lut = counter_lut(STDPParams(), 7, cuda)
+    for name, (kern, plain, tol) in _dense_calls(x, 7, po2, lut,
+                                                 dict(nearest=True, eta=0.3)).items():
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        assert out.shape == shape, name
+        if tol is None:
+            assert torch.equal(out, ref), name
+        else:
+            torch.testing.assert_close(out, ref, **tol)
+        assert not torch.equal(out, x["w"]), name
+
+
+def test_dense_kernels_on_two_streams_at_once(cuda):
+    """Two streams launch kernels 1, 2 and 5 in turns on different inputs;
+    every result equals its plain version."""
+    xs = [_dense_inputs(16, 784, 100, 7, seed=s, device=cuda) for s in (3, 4)]
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    lut = counter_lut(STDPParams(), 7, cuda)
+    calls = [_dense_calls(x, 7, po2, lut, dict(nearest=True, eta=0.3)) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [{name: [] for name in calls[0]} for _ in xs]
+    for _ in range(10):
+        for c, s, out in zip(calls, streams, outs):
+            with torch.cuda.stream(s):
+                for name, (kern, _, _) in c.items():
+                    out[name].append(kern())
+    torch.cuda.synchronize()
+    for c, out in zip(calls, outs):
+        for name, (_, plain, tol) in c.items():
+            ref = plain()
+            for o in out[name]:
+                if tol is None:
+                    assert torch.equal(o, ref), name
+                else:
+                    torch.testing.assert_close(o, ref, **tol)
+    assert not torch.equal(outs[0]["itp_stdp_update"][0], outs[1]["itp_stdp_update"][0])
+
+
+def test_dense_update_is_one_kernel_launch_per_call(cuda):
+    """The profiler sees one kernel per wrapper call of kernels 1, 2 and 5
+    and no other kernel, memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _dense_inputs(16, 784, 100, 7, seed=5, device=cuda)
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    lut = counter_lut(STDPParams(), 7, cuda)
+    calls = _dense_calls(x, 7, po2, lut, dict(nearest=True, eta=0.3))
+    n = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            for kern, _, _ in calls.values():
+                kern()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == len(calls) * n
+    assert sum("itp_stdp_kernel<true" in k for k in names) == n
+    assert sum("itp_stdp_kernel<false" in k for k in names) == n
+    assert sum("counter_stdp_kernel" in k for k in names) == 3 * n
 
 
 def test_fused_serving_on_card_matches_reference(cuda):
@@ -177,6 +298,39 @@ def test_conv_kernels_match_plain_versions(cuda, shape, depth):
         assert torch.equal(packed, plain)
 
 
+# shapes the staging of every row's full K and C columns refused: bitplanes
+# at depth 16 and 64 on DCSNN conv2, a wide (K + C ~ 1,000) shape at depth 8,
+# a depth-chunk remainder on a wide shape, and words at K + C above 5,000
+WIDE_DEEP = (((1600, 108, 24), 16), ((1600, 108, 24), 64), ((512, 900, 100), 8),
+             ((64, 2100, 40), 33), ((256, 4800, 300), 7))
+
+
+@pytest.mark.parametrize("shape,depth", WIDE_DEEP)
+def test_conv_kernels_take_wide_and_deep_shapes(cuda, shape, depth):
+    m, kk, cc = shape
+    g = torch.Generator().manual_seed(depth)
+    x = dict(pre=(torch.rand((m, kk), generator=g) < 0.3).float(),
+             post=(torch.rand((m, cc), generator=g) < 0.25).float(),
+             pre_b=(torch.rand((depth, m, kk), generator=g) < 0.3).float(),
+             post_b=(torch.rand((depth, m, cc), generator=g) < 0.25).float())
+    x = {k: v.to(cuda) for k, v in x.items()}
+    po2 = po2_vectors(STDPParams(), depth, device=cuda)
+    for nearest in (True, False):
+        outs = [CK.itp_stdp_conv_delta(x["pre"], x["post"], x["pre_b"], x["post_b"], *po2,
+                                       nearest=nearest)]
+        if depth <= 8:
+            outs.append(CK.itp_stdp_conv_delta_packed(
+                x["pre"], x["post"], pack_bitplanes(x["pre_b"]), pack_bitplanes(x["post_b"]),
+                *po2, depth=depth, nearest=nearest))
+        plain = CR.itp_stdp_conv_delta_ref(x["pre"], x["post"], x["pre_b"], x["post_b"], *po2,
+                                           nearest=nearest)
+        torch.cuda.synchronize()
+        for out in outs:
+            assert out.shape == (kk, cc)
+            torch.testing.assert_close(out, plain, **CONV_TOL)
+            assert torch.equal(out, plain)
+
+
 def test_conv_kernel_counts_launches_and_rejects_bad_operands(cuda):
     x = _conv_inputs(64, 25, 12, 7, seed=0, device=cuda)
     po2 = po2_vectors(STDPParams(), 7, device=cuda)
@@ -236,8 +390,8 @@ def test_conv_delta_is_one_kernel_launch_per_call(cuda):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 3 * calls
-    assert sum("itp_conv_delta_kernel<true>" in n for n in names) == calls
-    assert sum("itp_conv_delta_kernel<false>" in n for n in names) == calls
+    assert sum("itp_conv_delta_kernel<true," in n for n in names) == calls
+    assert sum("itp_conv_delta_kernel<false," in n for n in names) == calls
     assert sum("counter_conv_delta_kernel" in n for n in names) == calls
 
 
@@ -282,6 +436,30 @@ def test_conv_net_on_card_fused_bit_identical_to_reference(cuda, net):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+def test_deep_history_dcsnn_fused_step_equals_reference(cuda):
+    """``itp`` at depth 64 runs unpacked (kernels 4 and 2): the DCSNN trains
+    a few steps on the fused backend bit-identical to the reference."""
+    cfg = TS.PAPER_NETWORKS["6layer-dcsnn"](backend="fused", quantise=False, depth=64)
+    t_steps = 16
+    g = torch.Generator().manual_seed(0)
+    raster = (torch.rand((t_steps, 4, int(np.prod(cfg.input_shape))), generator=g) < 0.3)
+    raster = raster.to(torch.uint8).to(cuda)
+    runs = {}
+    for backend in ("fused", "reference"):
+        run_cfg = dataclasses.replace(cfg, backend=backend)
+        st = TS.init_snn(run_cfg, 4, generator=torch.Generator().manual_seed(1), device=cuda)
+        CK.itp_stdp_conv_delta.launches = 0
+        K.itp_stdp_update.launches = 0
+        runs[backend] = TS.run_snn(st, raster, run_cfg)
+        if backend == "fused":
+            assert CK.itp_stdp_conv_delta.launches == 2 * t_steps
+            assert K.itp_stdp_update.launches == t_steps
+    (sf, cf), (sr, cr) = runs["fused"], runs["reference"]
+    assert cf.sum() > 0 and torch.equal(cf, cr)
+    for a, b in zip(sf.weights, sr.weights):
+        assert torch.equal(a, b)
+
+
 # --- counter rules: fused update and conv delta (kernels 5-6) --------------
 
 WINDOWS = ("exact", "linear", "imstdp")
@@ -298,7 +476,8 @@ def _counters(shape, depth, g):
     return torch.randint(0, depth + 1, shape, generator=g).to(torch.uint8)
 
 
-@pytest.mark.parametrize("shape", ((8, 784, 100), (16, 600, 128), (2, 130, 70), (1, 33, 5)))
+@pytest.mark.parametrize("shape", ((8, 784, 100), (16, 600, 128), (2, 130, 70), (1, 33, 5),
+                                   (16, 480, 64)))
 @pytest.mark.parametrize("depth", (1, 7, 8, 255))
 @pytest.mark.parametrize("window", WINDOWS)
 def test_counter_kernel_matches_plain_version(cuda, shape, depth, window):
@@ -343,6 +522,26 @@ def test_counter_conv_kernel_matches_plain_version(cuda, shape, depth, window):
     assert torch.equal(out, again)
     torch.testing.assert_close(out, plain, **CONV_TOL)
     if depth == 7 and window != "exact":    # few binades: both sums exact
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("depth,window", ((7, "exact"), (7, "linear"), (7, "imstdp"),
+                                          (255, "exact")))
+def test_counter_conv_kernel_takes_wide_shapes(cuda, depth, window):
+    """K + C above 5,000 counter words, which the staging of full rows refused."""
+    m, kk, cc = 256, 4800, 300
+    g = torch.Generator().manual_seed(depth)
+    pre = (torch.rand((m, kk), generator=g) < 0.3).float().to(cuda)
+    post = (torch.rand((m, cc), generator=g) < 0.25).float().to(cuda)
+    pre_t, post_t = _counters((m, kk), depth, g).to(cuda), _counters((m, cc), depth, g).to(cuda)
+    lut = counter_lut(STDPParams(), depth, cuda)
+    kw = _counter_kw(depth, window)
+    out = NK.counter_conv_delta(pre, post, pre_t, post_t, lut, **kw)
+    plain = NR.counter_conv_delta_ref(pre, post, pre_t, post_t, lut=lut, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (kk, cc)
+    torch.testing.assert_close(out, plain, **CONV_TOL)
+    if depth == 7 and window != "exact":
         assert torch.equal(out, plain)
 
 

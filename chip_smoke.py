@@ -82,11 +82,33 @@ printed on lines of its own:
              and the 2layer-snn protocol with ``exact``, whose final accuracy
              must be ≥ 0.25 and within 0.05 of the ``itp`` run's; one profiled
              DCSNN batch each for itp and exact;
-9. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+9. matrix  — every cell of BENCH_static.json with backend ``fused`` or
+             ``sparse`` (9 rule × backend pairs × engine, fc, conv2d,
+             conv1d: 36 cells) at the reference audit's shapes for 8 steps,
+             against the same cell on ``reference`` on the card: spikes and
+             timing words exact, weights within rtol=1e-5, atol=1e-6 (conv
+             layers rtol=atol=1e-5); one line per cell with its max error and
+             its launches (the sparse cells run uncapped here);
+10. sparse_mstdp — the sparse backend and mstdp at full width: the sparse
+             ``itp`` engine at 784×100, depth 7, 64 steps at input rate 0.02
+             (weights on [0, 0.04), so the posts fire at ~10 %) bit-equal to
+             ``fused`` at every step, a run capped at 8 events twice
+             (bit-equal), and the middle step's update timed alone (the
+             sparse update's device time over all its kernels beside kernel
+             1's and the fused update's) with the observed densities; the
+             slice's serving load with ``rule="mstdp"`` on ``fused`` (kernel
+             2 on depth-1 magnitude planes, 2 B/neuron: 1,768 B a session)
+             and with ``itp`` on ``sparse`` at input rate 0.02, each held
+             against ``reference`` and solo ≡ interleaved; the 2layer-snn
+             protocol with ``mstdp`` (final ≥ 0.25); one 6layer-dcsnn batch on
+             ``mstdp``/``fused`` (kernel 4 on magnitude planes) and on
+             ``itp``/``sparse`` (kernel 4 on the gathered rows), each held
+             against ``reference``;
+11. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving and the fc
    layers of the training runs, its times at the shape where most of them
-   fall), the ``nvidia-smi`` name/power-limit line, and the final
-   ``{"ok": true, ...}`` line.
+   fall; the matrix phase's launches added), the ``nvidia-smi``
+   name/power-limit line, and the final ``{"ok": true, ...}`` line.
 
 Any mismatch or exception ends the script with a non-zero exit.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -162,6 +184,21 @@ CSNN_TRAIN = dict(epochs=1, batches_per_epoch=1, batch=16, t_steps=30,
 ACCURACY_TRAIN = dict(epochs=6, batches_per_epoch=8, batch=16, t_steps=30,
                       assign_batches=6, eval_batches=8, seed=0)
 ACCURACY_FLOOR = 0.25                   # 2.5 × chance on 10 classes
+# the matrix phase: BENCH_static.json's fused and sparse cells at the shapes of
+# the reference's audit (src/repro/analysis/jaxpr_audit.py), a few steps each
+MATRIX_BACKENDS = ("fused", "sparse")
+MATRIX_STEPS = 8
+MATRIX_SHAPES = {"fc": ((16,), dict(kind="fc", out_features=8)),
+                 "conv2d": ((8, 8, 1), dict(kind="conv2d", out_features=4, kernel=3)),
+                 "conv1d": ((16, 2), dict(kind="conv1d", out_features=4, kernel=3, stride=2))}
+MATRIX_TOL = dict(rtol=1e-5, atol=1e-6)  # the parity contract (conv layers: TRAIN_TOL)
+# the sparse_mstdp phase: the 2layer-snn fc width as one engine at a
+# realistic input density, and the slice loads with mstdp and sparse
+SPARSE_ENGINE = dict(n_pre=784, n_post=100, depth=7)
+SPARSE_STEPS = 64
+SPARSE_RATE = 0.02                      # input spike probability per step
+SPARSE_W = (0.0, 0.04)                  # init weight range: the posts fire at ~10 %
+SPARSE_CAP = 8                          # the capped run's max_events
 # the side numerics: the DCSNN conv1 population (24×24×12 at batch 16)
 LIF_POPULATION = (16, 24 * 24 * 12)
 LIF_STEPS = 30
@@ -1026,6 +1063,22 @@ def _run_batches(cfg, batches, batch, device):
     return st, counts
 
 
+def _net_kernels(cfg) -> tuple[str, str | None]:
+    """(conv kernel, fc kernel) a net's training launches: the counter
+    kernels for the counter rules; kernel 4 on gathered rows and no dense
+    kernel on ``sparse``; kernels 4 and 2 on a Rank1Rule's magnitude planes
+    (mstdp); kernels 3 and 1 on the packed history words otherwise."""
+    from repro_torch.plasticity import Rank1Rule
+
+    if cfg.rule in COUNTER_WINDOWS:
+        return "counter_conv_delta", "counter_stdp_update"
+    if cfg.backend == "sparse":
+        return "itp_stdp_conv_delta", None
+    if isinstance(cfg.learning_rule(), Rank1Rule):
+        return "itp_stdp_conv_delta", "itp_stdp_update"
+    return "itp_stdp_conv_delta_packed", "itp_stdp_update_packed"
+
+
 def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     """Train ``net`` on the main path with the launch counters set to 0 just
     before and read just after; then the same batches with quantise=False on
@@ -1048,18 +1101,18 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     steps = tcfg.batches_per_epoch * tcfg.t_steps * tcfg.epochs
-    counter_rule = cfg.rule in COUNTER_WINDOWS
-    conv_kernel, fc_kernel = (("counter_conv_delta", "counter_stdp_update") if counter_rule
-                              else ("itp_stdp_conv_delta_packed", "itp_stdp_update_packed"))
+    conv_kernel, fc_kernel = _net_kernels(cfg)
     want = dict.fromkeys(counters, 0)
-    want.update({conv_kernel: conv_layers * steps, fc_kernel: steps})
+    want[conv_kernel] = conv_layers * steps
+    if fc_kernel is not None:
+        want[fc_kernel] = steps
     st = res["state"]
     levels = (1 << (cfg.w_bits - 1)) - 1
     finite = all(bool(torch.isfinite(w).all()) for w in st.weights)
     on_grid = all(bool(torch.allclose(w * levels, torch.round(w * levels), atol=1e-3))
                   for w in st.weights)
     samples = tcfg.batch * tcfg.batches_per_epoch * tcfg.epochs
-    _phase("train", f"{net} rule={cfg.rule} fused (full width, batch {tcfg.batch}, "
+    _phase("train", f"{net} rule={cfg.rule} {cfg.backend} (full width, batch {tcfg.batch}, "
            f"t_steps {tcfg.t_steps}, "
            f"{tcfg.batches_per_epoch * tcfg.epochs} train batches + evaluation): "
            f"accuracy curve {res['accuracy_curve']}, eval rate {res['mean_eval_rates'][-1]:.4f}, "
@@ -1078,7 +1131,8 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     flt = dataclasses.replace(cfg, quantise=False)
     st_p, cnt_p = _run_batches(flt, batches, tcfg.batch, device)
     unpacked_launches, unpacked_fc, same_u = None, 0, True
-    if not counter_rule:
+    has_words = conv_kernel == "itp_stdp_conv_delta_packed"   # packed_history applies
+    if has_words:
         for fn in counters.values():
             fn.launches = 0
         st_u, cnt_u = _run_batches(dataclasses.replace(flt, packed_history=False), batches,
@@ -1098,10 +1152,11 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     w_ok = all(torch.allclose(a, b, **TRAIN_TOL) for a, b in zip(st_p.weights, st_r.weights))
     bitwise = all(torch.equal(a, b) for a, b in zip(st_p.weights, st_r.weights))
     spikes = sum(float(c.sum()) for c in cnt_p)
-    unpacked = ("n/a" if counter_rule
+    unpacked = ("n/a" if not has_words
                 else f"{same_u} ({unpacked_launches} unpacked conv launches)")
-    _phase("train", f"{net} rule={cfg.rule} quantise=False on the same {len(batches)} "
-           f"batches: packed == unpacked {unpacked}; fused vs "
+    _phase("train", f"{net} rule={cfg.rule} backend={cfg.backend} quantise=False on the "
+           f"same {len(batches)} "
+           f"batches: packed == unpacked {unpacked}; {cfg.backend} vs "
            f"reference: spike counts equal {counts_ok} ({spikes:.0f} output spikes), "
            f"weights max|err| {w_err:.3g} (bit-equal {bitwise})")
     if not (same_u and counts_ok and w_ok and spikes > 0):
@@ -1150,7 +1205,7 @@ def _accuracy_protocol(rule: str, device) -> dict:
     res = train_to_accuracy(cfg, sampler, n_classes, tcfg, device=device)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    fc_kernel = "counter_stdp_update" if rule in COUNTER_WINDOWS else "itp_stdp_update_packed"
+    fc_kernel = _net_kernels(cfg)[1]
     steps = tcfg.epochs * tcfg.batches_per_epoch * tcfg.t_steps
     _phase("train", f"2layer-snn (784x100, rule={rule}, fused, BENCH_accuracy protocol): "
            f"accuracy curve {res['accuracy_curve']} (final {res['final_accuracy']:.4f}, "
@@ -1207,6 +1262,257 @@ def phase_train(device) -> dict:
     return out
 
 
+def _kernel_names(counts: dict, rule: str) -> dict:
+    """Launch counts keyed as the ``kernels`` line names them (a counter
+    kernel per window)."""
+    return {(f"{k}[{rule}]" if k.startswith("counter") else k): n
+            for k, n in counts.items() if n}
+
+
+def _assert_close_trees(what: str, got, want, tol: dict) -> float:
+    """Two state trees: float tensors within ``tol``, the rest (spikes,
+    words, heads) exact; returns the largest float error."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        if a is None and b is None:
+            continue
+        if a.dtype.is_floating_point:
+            if not torch.allclose(a, b, **tol):
+                raise SystemExit(f"{what}: values differ beyond {tol}")
+            err = max(err, (a - b).abs().max().item() if a.numel() else 0.0)
+        elif not torch.equal(a, b):
+            raise SystemExit(f"{what}: spikes or words differ")
+    return err
+
+
+def _matrix_cell(rule: str, backend: str, kind: str, raster, device):
+    """One matrix cell for MATRIX_STEPS steps from a seeded init: (weights and
+    membranes, the post spikes or spike counts, the timing states, the
+    initial weights).  The sparse cells run uncapped (the audit caps them at
+    4 events), so that they compute the reference's function; the capped
+    run is phase ``sparse_mstdp``'s."""
+    import torch
+
+    from repro_torch.core.engine import EngineConfig, init_engine, run_engine
+    from repro_torch.models import snn
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "engine":
+        cfg = EngineConfig(n_pre=16, n_post=8, rule=rule, backend=backend)
+        st0 = init_engine(cfg, generator=gen, device=device)
+        st, out = run_engine(st0, raster, cfg)
+        return (st.w, st.neurons), out, (st.pre_hist, st.post_hist), st0.w
+    in_shape, spec = MATRIX_SHAPES[kind]
+    cfg = snn.SNNConfig(name=f"matrix-{kind}", input_shape=in_shape,
+                        layers=(snn.SNNLayerSpec(**spec),), rule=rule, backend=backend)
+    st0 = snn.init_snn(cfg, 1, generator=gen, device=device)
+    st, counts = snn.run_snn(st0, raster, cfg)
+    layer = st.layers[0]
+    return ((st.weights, layer.neurons, layer.theta), counts,
+            (layer.pre_hist, layer.post_hist), st0.weights[0])
+
+
+def phase_matrix(device) -> dict:
+    """Every fused and sparse cell of BENCH_static.json (rule × backend ×
+    kind) on the card against the same cell on ``reference`` on the card:
+    spikes and timing words exact, weights within the parity contract (conv
+    layers within the net tolerance).  Returns the kernels' launches, the
+    counters set to 0 just before and read just after."""
+    import torch
+
+    cells = json.loads((ROOT / "BENCH_static.json").read_text())["static_audit"]["cells"]
+    cells = [(c["rule"], c["backend"], c["kind"]) for c in cells
+             if c["backend"] in MATRIX_BACKENDS]
+    counters = _train_counters()
+    launches: dict[str, int] = {}
+    t0 = time.perf_counter()
+    for i, (rule, backend, kind) in enumerate(cells):
+        gen = torch.Generator().manual_seed(100 + i)
+        shape = (16,) if kind == "engine" else (1, *MATRIX_SHAPES[kind][0])
+        raster = (torch.rand((MATRIX_STEPS, *shape), generator=gen) < 0.3).float().to(device)
+        for fn in counters.values():
+            fn.launches = 0
+        vals, out, timing, w0 = _matrix_cell(rule, backend, kind, raster, device)
+        cell = _kernel_names({k: fn.launches for k, fn in counters.items()}, rule)
+        for k, n in cell.items():
+            launches[k] = launches.get(k, 0) + n
+        ref_vals, ref_out, ref_timing, _ = _matrix_cell(rule, "reference", kind, raster,
+                                                        device)
+        what = f"{rule}/{backend}/{kind}"
+        tol = MATRIX_TOL if kind in ("engine", "fc") else TRAIN_TOL
+        err = _assert_close_trees(what, (vals, out, timing), (ref_vals, ref_out, ref_timing),
+                                  tol)
+        moved = not torch.equal(vals[0] if kind == "engine" else vals[0][0], w0)
+        _phase("matrix", f"{what}: {MATRIX_STEPS} steps vs reference on the card, max|err| "
+               f"{err:.3g}, spikes and words exact, weights moved {moved}; launches "
+               f"{cell or 'none (no kernel on this path)'}")
+        if not moved:
+            raise SystemExit(f"{what}: the weights did not move")
+    torch.cuda.synchronize()
+    _phase("matrix", f"{len(cells)} cells OK in {time.perf_counter() - t0:.2f} s; launches "
+           f"{launches}")
+    return launches
+
+
+def _device_total_ms(fn, *, n: int = 50) -> tuple[float, float]:
+    """Device time per call of ``fn`` summed over every kernel, copy and
+    memset it issues (a profiler trace), and the device events per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+                   for e in events)
+    return total_us / n / 1e3, len(events) / n
+
+
+def _sparse_engine(device) -> dict:
+    """The sparse itp engine at the 2layer-snn fc width beside the fused one,
+    step by step from one state: bit-equal weights and spikes at every step;
+    a capped run twice, bit-equal; the sparse update's device time beside
+    kernel 1's at the state of the middle step."""
+    import torch
+
+    from repro_torch import plasticity
+    from repro_torch.core.engine import EngineConfig, engine_step, init_engine
+
+    gen = torch.Generator().manual_seed(21)
+    lo, hi = SPARSE_W
+    w0 = lo + (hi - lo) * torch.rand((SPARSE_ENGINE["n_pre"], SPARSE_ENGINE["n_post"]),
+                                     generator=gen)
+    raster = (torch.rand((SPARSE_STEPS, SPARSE_ENGINE["n_pre"]), generator=gen)
+              < SPARSE_RATE).float().to(device)
+    cfgs = {b: EngineConfig(**SPARSE_ENGINE, backend=b) for b in ("fused", "sparse")}
+    states = {b: init_engine(cfg, w_init=w0, device=device) for b, cfg in cfgs.items()}
+    mid = SPARSE_STEPS // 2
+    pre_n = post_n = 0.0
+    for t in range(SPARSE_STEPS):
+        before = dict(states)
+        posts = {}
+        for b, cfg in cfgs.items():
+            states[b], posts[b] = engine_step(states[b], raster[t], cfg)
+        if not (torch.equal(posts["fused"], posts["sparse"])
+                and torch.equal(states["fused"].w, states["sparse"].w)):
+            raise SystemExit(f"sparse engine: differs from fused at step {t}")
+        if t == mid:   # the update's operands at this step, for the timing below
+            at_mid = (before, raster[t], posts["sparse"])
+        pre_n += float(raster[t].sum())
+        post_n += float(posts["sparse"].sum())
+    pre_density = pre_n / (SPARSE_STEPS * SPARSE_ENGINE["n_pre"])
+    post_density = post_n / (SPARSE_STEPS * SPARSE_ENGINE["n_post"])
+    moved = not torch.equal(states["sparse"].w, w0.to(device))
+    _phase("sparse_mstdp", f"engine 784x100 itp sparse vs fused, {SPARSE_STEPS} steps at "
+           f"input rate {SPARSE_RATE}: bit-equal at every step (w and spikes); observed "
+           f"density pre {pre_density:.4f}, post {post_density:.4f}; w moved {moved}")
+    if not (moved and post_n > 0):
+        raise SystemExit("sparse engine: no post spike or no learning")
+
+    capped = EngineConfig(**SPARSE_ENGINE, backend="sparse", max_events=SPARSE_CAP)
+    runs = []
+    for _ in range(2):
+        st = init_engine(capped, w_init=w0, device=device)
+        for t in range(SPARSE_STEPS):
+            st, _ = engine_step(st, raster[t], capped)
+        runs.append(st.w)
+    if not torch.equal(*runs):
+        raise SystemExit("capped sparse engine: two runs differ")
+    _phase("sparse_mstdp", f"capped (max_events={SPARSE_CAP}) sparse run x2: bit-equal; "
+           f"max|w - uncapped w| {(runs[0] - states['sparse'].w).abs().max().item():.3g}")
+
+    # the update of the middle step, alone: the sparse update (every kernel of
+    # it) beside kernel 1 and the fused update (kernel 1 and its word packing)
+    before, pre, post = at_mid
+    calls = {b: (lambda p=plasticity.make_plan(cfg, device), s=before[b]:
+                 p.update(s.w, pre, post, s.pre_hist, s.post_hist))
+             for b, cfg in cfgs.items()}
+    if not torch.equal(calls["fused"](), calls["sparse"]()):
+        raise SystemExit("sparse vs fused update at the timed step differ")
+    out = {"pre_density": pre_density, "post_density": post_density,
+           "pre_events": int(pre.sum()), "post_events": int(post.sum())}
+    for b, call in calls.items():
+        out[f"{b}_ms"] = _time_ms(call)
+        out[f"{b}_device_ms"], out[f"{b}_events"] = _device_total_ms(call)
+    out["kernel1_device_ms"] = _device_ms(calls["fused"], "itp_stdp_kernel")
+    _phase("sparse_mstdp", f"the update of step {mid} alone ({out['pre_events']} pre, "
+           f"{out['post_events']} post events): sparse {out['sparse_device_ms']:.5f} ms "
+           f"device ({out['sparse_events']:.0f} device events a call), "
+           f"{out['sparse_ms']:.5f} ms by events; fused {out['fused_device_ms']:.5f} ms "
+           f"device ({out['fused_events']:.0f} device events), {out['fused_ms']:.5f} ms by "
+           f"events; kernel 1 alone {out['kernel1_device_ms']} ms device")
+    return out
+
+
+def phase_sparse_mstdp(device) -> dict:
+    """The sparse backend and mstdp at full width: the sparse engine; the
+    slice's serving load with mstdp on fused (kernel 2 on magnitude planes,
+    2 B/neuron) and with itp on sparse at a realistic input rate, each held
+    against reference; the 2layer-snn accuracy protocol with mstdp; one
+    6layer-dcsnn batch on mstdp/fused (kernel 4 on magnitude planes) and on
+    itp/sparse, each held against reference.  Launches are counted per run,
+    the counters set to 0 just before each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.launch.serve import synthetic_load
+    from repro_torch.models import snn
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.stdp_trainer import TrainerConfig
+
+    out = {"engine": _sparse_engine(device)}
+    counters = _train_counters()
+    scfg = ServeConfig(**SERVE_SCFG)
+    serving = {}
+    for rule, backend, rate in (("mstdp", "fused", 0.3), ("itp", "sparse", SPARSE_RATE)):
+        cfg = EngineConfig(**dict(SERVE_CFG, rule=rule), backend=backend)
+        load = synthetic_load(torch.Generator().manual_seed(1), t_steps=scfg.t_steps,
+                              n_pre=cfg.n_pre, rate=rate, **SERVE_LOAD)
+        _serve(cfg, scfg, load[:scfg.max_batch], device, threaded=False)     # warm
+        for fn in counters.values():
+            fn.launches = 0
+        server, results, seconds = _serve(cfg, scfg, load, device, threaded=True)
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        want = {"itp_stdp_update": server.batches * scfg.t_steps} if backend == "fused" else {}
+        if launches != want:
+            raise SystemExit(f"serving {rule}/{backend}: launches {launches}, expected {want}")
+        nbytes = server.store.state_bytes_per_session()
+        words = server.store.plan.words_per_neuron()
+        if nbytes != words * (cfg.n_pre + cfg.n_post) or words != (2 if rule == "mstdp" else 1):
+            raise SystemExit(f"serving {rule}: {nbytes} B/session of plasticity cache")
+        ref_rps = _serve_parity(cfg, scfg, load, device, server, results, what=rule)
+        post_rate = float(np.mean([r.post.mean() for r in results]))
+        _phase("sparse_mstdp", f"serving rule={rule} {backend} at input rate {rate}: "
+               f"{len(results)}/{len(load)} requests in {server.batches} batches, "
+               f"{len(load) / seconds:.2f} requests/s ({ref_rps:.2f} on reference), "
+               f"{nbytes} B/session of plasticity cache ({words} B/neuron), mean post "
+               f"rate {post_rate:.4f}; fused/sparse == reference (rasters and words "
+               f"exact), solo == interleaved (bitwise); launches {launches}")
+        serving[f"{rule}/{backend}"] = {"requests_per_s": len(load) / seconds,
+                                        "bytes_per_session": nbytes, "launches": launches}
+    out["serving"] = serving
+
+    train = {"2layer-snn mstdp": _accuracy_protocol("mstdp", device)}
+    dcsnn_t = dataclasses.replace(TrainerConfig(**DCSNN_TRAIN), batches_per_epoch=1)
+    for rule, backend in (("mstdp", "fused"), ("itp", "sparse")):
+        cfg = snn.fmnist_dcsnn(rule, backend=backend)
+        key = f"6layer-dcsnn {rule if rule != 'itp' else backend}"
+        train[key] = _train_net("6layer-dcsnn", cfg, dcsnn_t, device, conv_layers=2)
+    out["train"] = train
+    return out
+
+
 def _dense_launches(serve: dict, train: dict, kernels: dict) -> dict:
     """A dense kernel launches in serving and once per step in every fc
     layer of the training runs (the batch as lanes): its launches by shape,
@@ -1214,12 +1520,13 @@ def _dense_launches(serve: dict, train: dict, kernels: dict) -> dict:
     most of its launches fall.  Returns the summed launches."""
     fc_case = {"6layer-dcsnn": "DCSNN fc", "5layer-csnn": "CSNN fc",
                "2layer-snn": "2layer-snn fc"}
-    dense = {name: {"serving": n} for name, n in serve["launches"].items()}
+    dense = {name: {"serving": n} for name, n in serve["launches"].items() if n}
     for run, r in train.items():
         net, _, rule = run.partition(" ")
-        counts = ({f"counter_stdp_update[{rule}]": r["launches"]["counter_stdp_update"]} if rule
-                  else {"itp_stdp_update_packed": r["launches"]["itp_stdp_update_packed"],
-                        "itp_stdp_update": r.get("unpacked_fc_launches", 0)})
+        counts = {"itp_stdp_update_packed": r["launches"].get("itp_stdp_update_packed", 0),
+                  "itp_stdp_update": (r["launches"].get("itp_stdp_update", 0)
+                                      + r.get("unpacked_fc_launches", 0)),
+                  f"counter_stdp_update[{rule}]": r["launches"].get("counter_stdp_update", 0)}
         for name, n in counts.items():
             if n:
                 by_shape = dense.setdefault(name, {})
@@ -1270,17 +1577,35 @@ def main() -> int:
     side = phase_side_numerics(device)
     kernels.update(side["kernels"])
     train = phase_train(device)
+    matrix = phase_matrix(device)
+    sparse_mstdp = phase_sparse_mstdp(device)
+    # the mstdp serving load launches kernel 2 at serving's shape, the mstdp
+    # and sparse training runs kernels 2 and 4
+    serve["launches"]["itp_stdp_update"] += (
+        sparse_mstdp["serving"]["mstdp/fused"]["launches"]["itp_stdp_update"])
+    train.update(sparse_mstdp["train"])
     dcsnn = train["6layer-dcsnn"]
     # launches: each kernel's count from the runs of its main path (the conv
-    # kernels DCSNN training, kernel 4 its unpacked run; the counter conv
-    # windows the exact DCSNN, linear CSNN and imstdp DCSNN runs)
+    # kernels DCSNN training, kernel 4 its unpacked run and the mstdp and
+    # sparse DCSNN runs; the counter conv windows the exact DCSNN, linear
+    # CSNN and imstdp DCSNN runs), then the matrix phase's cells
     launches = _dense_launches(serve, train, kernels)
     launches.update(itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
-                    itp_stdp_conv_delta=dcsnn["unpacked_launches"])
+                    itp_stdp_conv_delta=dcsnn["unpacked_launches"] + sum(
+                        train[run]["launches"]["itp_stdp_conv_delta"]
+                        for run in ("6layer-dcsnn mstdp", "6layer-dcsnn sparse")))
     for window, run in (("exact", "6layer-dcsnn exact"), ("linear", "5layer-csnn linear"),
                         ("imstdp", "6layer-dcsnn imstdp")):
         launches[f"counter_conv_delta[{window}]"] = train[run]["launches"]["counter_conv_delta"]
     launches.update(side["launches"])   # the neuron datapath and ITP-AdamW runs
+    for name, n in matrix.items():
+        launches[name] += n
+        kernels[name].setdefault("launches_by_shape", {})["matrix"] = n
+    e = sparse_mstdp["engine"]
+    _phase("sparse_mstdp", f"sparse update at 784x100 (density pre {e['pre_density']:.4f}, "
+           f"post {e['post_density']:.4f}): {e['sparse_device_ms']:.5f} ms device against "
+           f"kernel 1's {e['kernel1_device_ms']} ms and the fused update's "
+           f"{e['fused_device_ms']:.5f} ms")
     if not all(launches.get(name, 0) > 0 for name in kernels):
         raise SystemExit(f"a kernel of the path was never launched: {launches}")
     for net, r in train.items():

@@ -11,10 +11,11 @@ take any object with the reference's attribute names whose leaves
 ``numpy.asarray`` accepts.
 
 A timing state is whatever the rule keeps: a ``SpikeHistory`` ring for the
-history rules (``planes``, ``head``) or an int32 last-spike counter array
-for the counter rules; the converters dispatch on it.  The history ring's
-``head`` is int64 in the port and int32 in the reference; the words,
-planes, counters, weights and membranes keep their dtypes.
+history rules (``planes``, ``head``), an ``MSTDPState`` (``hist``, ``elig``)
+for mstdp, or an int32 last-spike counter array for the counter rules; the
+converters dispatch on it.  The history ring's ``head`` is int64 in the port
+and int32 in the reference; the words, planes, counters, eligibility,
+weights and membranes keep their dtypes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core.engine import EngineState
 from repro_torch.core.history import SpikeHistory
 from repro_torch.core.lif import IzhikevichState, LIFFixedState, LIFState
 from repro_torch.models.snn import LayerState, SNNState
+from repro_torch.plasticity.mstdp import MSTDPState
 from repro_torch.serve.session import SessionState
 from repro_torch.train.optimizer import OptState
 from repro_torch.tree import tree_map
@@ -40,8 +42,10 @@ def _np(x: torch.Tensor, dtype=None) -> np.ndarray:
 
 
 def _history(h, device):
-    """A timing state: a ``SpikeHistory`` from (``planes``, ``head``), or an
-    int32 counter array."""
+    """A timing state: a ``SpikeHistory`` from (``planes``, ``head``), an
+    ``MSTDPState`` from (``hist``, ``elig``), or an int32 counter array."""
+    if hasattr(h, "elig"):
+        return MSTDPState(hist=_history(h.hist, device), elig=_to(h.elig, torch.uint8, device))
     if not hasattr(h, "planes"):
         return _to(h, torch.int32, device)
     return SpikeHistory(planes=_to(h.planes, torch.uint8, device),
@@ -49,7 +53,10 @@ def _history(h, device):
 
 
 def _history_np(h):
-    """``(planes, head)`` of a ``SpikeHistory``, or the int32 counter array."""
+    """``(planes, head)`` of a ``SpikeHistory``, ``((planes, head), elig)`` of
+    an ``MSTDPState``, or the int32 counter array."""
+    if isinstance(h, MSTDPState):
+        return _history_np(h.hist), _np(h.elig)
     if isinstance(h, SpikeHistory):
         return _np(h.planes), _np(h.head, np.int32)
     return _np(h, np.int32)
@@ -57,8 +64,8 @@ def _history_np(h):
 
 def engine_state_from_arrays(state, *, device: torch.device | str) -> EngineState:
     """``EngineState`` from the reference's (``w``, ``pre_hist``,
-    ``post_hist``, ``neurons.v``); timing states are ``SpikeHistory`` rings
-    or counter arrays."""
+    ``post_hist``, ``neurons.v``); timing states as :func:`_history` reads
+    them."""
     return EngineState(w=_to(state.w, torch.float32, device),
                        pre_hist=_history(state.pre_hist, device),
                        post_hist=_history(state.post_hist, device),
@@ -67,8 +74,7 @@ def engine_state_from_arrays(state, *, device: torch.device | str) -> EngineStat
 
 def engine_state_to_numpy(state: EngineState) -> tuple:
     """``(w, pre, post, (v,))`` — the reference's ``EngineState`` field
-    order; ``pre`` / ``post`` are ``(planes, head)`` of a ``SpikeHistory``
-    or an int32 counter array."""
+    order; ``pre`` / ``post`` as :func:`_history_np` gives them."""
     return (_np(state.w), _history_np(state.pre_hist), _history_np(state.post_hist),
             (_np(state.neurons.v),))
 
@@ -105,7 +111,7 @@ def _neurons(n, device):
 def snn_state_from_arrays(state, *, device: torch.device | str) -> SNNState:
     """``SNNState`` from the reference's (``weights``, ``layers``): every
     layer's neuron state (LIF ``v`` or Izhikevich ``v, u``), its two timing
-    states (``SpikeHistory`` rings or counter arrays) and θ; pool layers stay
+    states (as :func:`_history` reads them) and θ; pool layers stay
     all-``None``."""
     layers = []
     for lst in state.layers:
@@ -124,8 +130,8 @@ def snn_state_from_arrays(state, *, device: torch.device | str) -> SNNState:
 def snn_state_to_numpy(state: SNNState) -> tuple:
     """``(weights, layers)`` in the reference's field order: each layer is
     ``(neurons, pre, post, theta)``, neurons ``(v,)`` or ``(v, u)``, each
-    timing state ``(planes, head)`` or an int32 counter array; a pool layer
-    is ``(None, None, None, None)``."""
+    timing state as :func:`_history_np` gives it; a pool layer is
+    ``(None, None, None, None)``."""
     layers = []
     for lst in state.layers:
         if lst.neurons is None:

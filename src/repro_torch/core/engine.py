@@ -35,8 +35,8 @@ class EngineConfig:
     w_bits: int = 8                      # weight word width incl. sign
     quantise: bool = False               # round weights to the 8-bit grid
     rule: str = "itp"                    # plasticity.rule_names()
-    backend: str = "reference"           # reference | fused | fused_interpret
-    max_events: int | None = None        # sparse backend's event cap (not ported)
+    backend: str = "reference"           # reference | fused | fused_interpret | sparse
+    max_events: int | None = None        # sparse backend's event-list cap (None: uncapped)
     packed_history: bool = True          # fused* datapaths read packed uint8
                                          # words; depth > 8 falls back to the
                                          # unpacked bitplanes

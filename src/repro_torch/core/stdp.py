@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable
 
 import torch
@@ -196,8 +196,16 @@ def magnitudes_depth_major(planes: torch.Tensor, amplitude: float, tau: float,
     bits = planes.to(torch.float32)
     if pairing == "nearest":
         bits = bits * (torch.cumsum(bits, dim=-2) == 1.0)
-    w = po2_weights(bits.shape[-2], tau, compensate=compensate).to(bits.device)
+    w = _po2_weights_on(bits.shape[-2], tau, compensate, bits.device)
     return amplitude * po2_read(w, bits)
+
+
+@lru_cache(maxsize=64)
+def _po2_weights_on(depth: int, tau: float, compensate: bool,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`po2_weights` copied to ``device`` once: a copy per step from
+    the host would make every magnitude read wait for the card."""
+    return po2_weights(depth, tau, compensate=compensate).to(device)
 
 
 def pair_gate(pre_spike: torch.Tensor, post_spike: torch.Tensor

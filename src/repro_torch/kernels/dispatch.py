@@ -7,11 +7,14 @@
                           wrapper runs the kernel's plain version)
   * ``fused_interpret`` — the kernel's plain version, on any device: the
                           port's analogue of Pallas interpret mode
-  * ``sparse``          — event-driven datapath; not ported yet (rejected
-                          at config construction, see
-                          ``repro_torch.plasticity.base``)
+  * ``sparse``          — event-driven datapath (``kernels/itp_sparse``):
+                          static-shape event lists gate gather/scatter
+                          updates of only the touched weight slices; not a
+                          kernel path, so it maps to ``use_kernel=False``
+                          and the plan branches on the name
 
-The im2col layout helpers of ``itp_stdp_conv.ops`` re-export here lazily
+The event-list primitives of ``itp_sparse.events`` and the im2col layout
+helpers of ``itp_stdp_conv.ops`` re-export here lazily
 (PEP 562 ``__getattr__``, so importing ``dispatch`` from inside a kernel
 package never cycles), as the reference re-exports them: the models import
 this module instead of reaching into a kernel package.
@@ -26,6 +29,9 @@ import torch.nn.functional as F
 # name → defining module of the kernel-package re-exports; resolved on first
 # attribute access and cached in globals()
 _KERNEL_REEXPORTS = {
+    "event_cap": "repro_torch.kernels.itp_sparse.events",
+    "spike_events": "repro_torch.kernels.itp_sparse.events",
+    "word_events": "repro_torch.kernels.itp_sparse.events",
     "im2col_1d": "repro_torch.kernels.itp_stdp_conv.ops",
     "im2col_2d": "repro_torch.kernels.itp_stdp_conv.ops",
     "im2col_words_1d": "repro_torch.kernels.itp_stdp_conv.ops",

@@ -51,18 +51,18 @@ def add_net_flag(ap: argparse.ArgumentParser, flag: str = "--net", *,
 def add_update_flags(ap: argparse.ArgumentParser) -> None:
     """Learning-rule / weight-update-datapath selection (rule × backend)."""
     ap.add_argument(
-        "--rule", default="itp",
-        choices=tuple(sorted({*plasticity.rule_names(), *plasticity.UNPORTED_RULES})),
-        help="learning rule: itp/itp_nocomp (intrinsic timing) or the counter "
-        "baselines exact/linear/imstdp; rules not ported yet fail naming their "
-        "ROADMAP item")
+        "--rule", default="itp", choices=plasticity.rule_names(),
+        help="learning rule: itp/itp_nocomp (intrinsic timing), the counter "
+        "baselines exact/linear/imstdp, or mstdp (reward-modulated)")
     ap.add_argument(
         "--backend", default="reference", choices=BACKENDS,
         help="weight-update datapath: plain torch reference, the fused CUDA "
-        "kernel, or the kernel's plain version (fused_interpret)")
+        "kernel, the kernel's plain version (fused_interpret), or the "
+        "event-driven sparse datapath (itp, itp_nocomp, mstdp)")
     ap.add_argument(
         "--max-events", type=int, default=None,
-        help="sparse backend's event-list cap (the sparse backend is not ported yet)")
+        help="sparse backend's event-list cap per population and step (default: "
+        "uncapped; past the cap the highest-indexed events are dropped)")
 
 
 def add_serve_flags(ap: argparse.ArgumentParser) -> None:

@@ -62,8 +62,8 @@ class SNNConfig:
     izhi_gain: float = 20.0       # current scale into the Izhikevich model
     w_bits: int = 8
     quantise: bool = True
-    backend: str = "reference"    # reference | fused | fused_interpret
-    max_events: int | None = None  # sparse backend's event cap (not ported)
+    backend: str = "reference"    # reference | fused | fused_interpret | sparse
+    max_events: int | None = None  # sparse backend's event-list cap (None: uncapped)
     packed_history: bool = True   # fused* datapaths read packed uint8 words;
                                   # False keeps the unpacked bitplane operands
     inhibition: float = 0.0       # soft lateral inhibition (2-layer SNN)

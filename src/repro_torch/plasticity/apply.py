@@ -10,12 +10,14 @@ and its plain version read the same bits.  Plans are cached per
 static plan per trace.
 
 :meth:`UpdatePlan.update` is the dense engine update (fused kernel, the
-kernel's plain version for ``fused_interpret``, or the reference rank-1
-path plus clip); the session-word methods are the seam the serving layer
-rides.  :meth:`UpdatePlan.fc_delta` / :meth:`UpdatePlan.conv_delta` are
-the batched SNN layer deltas (raw Δw: the layer owns eta, the batch
-normalisation, the clip and quantisation).  The shard_map tile update and
-the sparse backend come with later slices.
+kernel's plain version for ``fused_interpret``, the event-driven
+gather/scatter for ``sparse``, or the reference rank-1 path plus clip); the
+session-word methods are the seam the serving layer rides.
+:meth:`UpdatePlan.fc_delta` / :meth:`UpdatePlan.conv_delta` are the batched
+SNN layer deltas (raw Δw: the layer owns eta, the batch normalisation, the
+clip and quantisation).  The shard_map tile update (``tile_update``,
+``pre_events_crossing``) comes with the sharded engine (ROADMAP queue 1
+item 15).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class UpdatePlan:
     backend: str
     use_kernel: bool       # fused / fused_interpret
     interpret: bool        # fused_interpret: the kernel's plain version
+    sparse: bool           # event-driven datapath
     packed: bool           # resolved packed-word selection (depth <= 8)
     depth: int
     pairing: str
@@ -49,6 +52,7 @@ class UpdatePlan:
     eta: float
     w_min: float
     w_max: float
+    max_events: int | None
     device: torch.device
     po2: tuple[torch.Tensor, torch.Tensor] = dataclasses.field(compare=False)
     table: torch.Tensor | None = dataclasses.field(default=None, compare=False)
@@ -58,17 +62,25 @@ class UpdatePlan:
     def update(self, w: torch.Tensor, pre_spikes: torch.Tensor,
                post_spikes: torch.Tensor, pre_state: Any,
                post_state: Any) -> torch.Tensor:
-        """Clipped update of the ``(*lanes, n_pre, n_post)`` matrix."""
+        """Clipped update of the ``(*lanes, n_pre, n_post)`` matrix.
+
+        The sparse backend has no silent-step skip: the reference's
+        ``lax.cond`` would need the "any event" flag on the host, a wait for
+        the card every step.  A silent step's event lists are all padding,
+        so its update writes ``w``'s own values and the result is the same.
+        """
         rule = self.rule
-        if self.use_kernel:
-            return rule.fused_update(
-                w, pre_spikes, post_spikes,
-                rule.kernel_view(pre_state, packed=self.packed),
-                rule.kernel_view(post_state, packed=self.packed),
-                self.stdp, packed=self.packed, depth=self.depth,
-                pairing=self.pairing, compensate=self.compensate, eta=self.eta,
-                w_min=self.w_min, w_max=self.w_max, interpret=self.interpret,
-                po2=self.po2, table=self.table)
+        if self.use_kernel or self.sparse:
+            views = (rule.kernel_view(pre_state, packed=self.packed),
+                     rule.kernel_view(post_state, packed=self.packed))
+            kw = dict(packed=self.packed, depth=self.depth, pairing=self.pairing,
+                      compensate=self.compensate, eta=self.eta, w_min=self.w_min,
+                      w_max=self.w_max, po2=self.po2, table=self.table)
+            if self.sparse:
+                return rule.sparse_update(w, pre_spikes, post_spikes, *views, self.stdp,
+                                          max_events=self.max_events, **kw)
+            return rule.fused_update(w, pre_spikes, post_spikes, *views, self.stdp,
+                                     interpret=self.interpret, **kw)
         dw = rule.delta(pre_state, post_state, pre_spikes, post_spikes, self.stdp,
                         depth=self.depth, pairing=self.pairing,
                         compensate=self.compensate)
@@ -82,21 +94,22 @@ class UpdatePlan:
 
         The fc layer is the engine's dense synapse matrix replicated over the
         batch.  The kernel backends make one kernel-1 launch with the batch
-        as the lane axis and sum the ``(B, fan_in, n_out)`` per-sample deltas
-        (the reference vmaps and sums); the reference backend contracts the
-        pair-gated magnitudes over the batch (the P = 1 case of the conv
-        patch formula).  Every per-sample term is an exact float32 value, so
-        both sum in float64, exactly, and round once: the two backends give
-        the same bits, as the conv kernel and its plain version do.  The
-        kernel view's shape picks the layout: ``(B·n,)`` words (packed
-        history words, counter words at any depth) or ``(rows, B·n)`` rows.
+        as the lane axis, and the sparse backend one batched scatter, and sum
+        the ``(B, fan_in, n_out)`` per-sample deltas (the reference vmaps and
+        sums); the reference backend contracts the pair-gated magnitudes over
+        the batch (the P = 1 case of the conv patch formula).  Every
+        per-sample term is an exact float32 value, so all sum in float64,
+        exactly, and round once: the backends give the same bits, as the conv
+        kernel and its plain version do.  The kernel view's shape picks the
+        layout: ``(B·n,)`` words (packed history words, counter words at any
+        depth) or ``(rows, B·n)`` rows.
         """
         B = s_in.shape[0]
         pre = s_in.reshape(B, -1)                        # (B, fan_in)
         post = s_out.reshape(B, -1)                      # (B, n_out)
         rule, p = self.rule, self.stdp
         kw = dict(depth=self.depth, pairing=self.pairing, compensate=self.compensate)
-        if not self.use_kernel:
+        if not (self.use_kernel or self.sparse):
             ltp = rule.magnitudes(pre_state, p.a_plus, p.tau_plus, **kw).reshape(B, -1)
             ltd = rule.magnitudes(post_state, p.a_minus, p.tau_minus, **kw).reshape(B, -1)
             return gated_contraction(pre, post, ltp, ltd)
@@ -108,9 +121,13 @@ class UpdatePlan:
         else:              # (rows, B·n) → (B, rows, n) lanes
             pre_read = pre_read.reshape(pre_read.shape[0], B, -1).transpose(0, 1)
             post_read = post_read.reshape(post_read.shape[0], B, -1).transpose(0, 1)
-        dw = rule.fused_delta(pre, post, pre_read, post_read, p, packed=words,
-                              interpret=self.interpret, po2=self.po2, table=self.table,
-                              **kw)
+        kw.update(packed=words, po2=self.po2, table=self.table)
+        if self.sparse:
+            dw = rule.sparse_delta(pre, post, pre_read, post_read, p,
+                                   max_events=self.max_events, **kw)
+        else:
+            dw = rule.fused_delta(pre, post, pre_read, post_read, p,
+                                  interpret=self.interpret, **kw)
         return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
 
     def conv_delta(self, pre_state: Any, post_state: Any, patches: torch.Tensor,
@@ -122,8 +139,11 @@ class UpdatePlan:
         (each patch element carries its source pixel's state): word views
         once as ``(M, K)`` uint8, row views as ``(rows, M, K)`` float32.  The
         view's shape picks the layout: a history rule gives words only on a
-        kernel backend with packed histories (the reference backend reads the
-        rows its oracle is defined on); a counter rule always gives words.
+        kernel backend with packed histories (the reference and sparse
+        backends read the rows their oracles are defined on); a counter rule
+        always gives words, a :class:`~repro_torch.plasticity.base.Rank1Rule`
+        always rows.  The sparse backend gathers the active rows of these
+        operands into the conv kernel.
         """
         rule = self.rule
         B = s_out.shape[0]
@@ -141,12 +161,16 @@ class UpdatePlan:
             pre_read = im2col(pre_read.reshape(rows * B, *in_shape), kernel, stride)
             pre_read = pre_read.reshape(rows, -1, pre_read.shape[-1])    # (rows, M, K)
             post_read = post_read.to(torch.float32).reshape(rows, -1, s_out.shape[-1])
-        return rule.patch_delta(
-            patches.reshape(-1, patches.shape[-1]), s_out.reshape(-1, s_out.shape[-1]),
-            pre_read, post_read, self.stdp, packed=packed, depth=self.depth,
-            pairing=self.pairing, compensate=self.compensate,
-            use_kernel=self.use_kernel, interpret=self.interpret, po2=self.po2,
-            table=self.table)
+        pre_patches = patches.reshape(-1, patches.shape[-1])          # (M, K)
+        post_spikes = s_out.reshape(-1, s_out.shape[-1])              # (M, C)
+        kw = dict(depth=self.depth, pairing=self.pairing, compensate=self.compensate,
+                  po2=self.po2, table=self.table)
+        if self.sparse:
+            return rule.sparse_patch_delta(pre_patches, post_spikes, pre_read, post_read,
+                                           self.stdp, max_events=self.max_events, **kw)
+        return rule.patch_delta(pre_patches, post_spikes, pre_read, post_read, self.stdp,
+                                packed=packed, use_kernel=self.use_kernel,
+                                interpret=self.interpret, **kw)
 
     # -- session serialization (the serving layer's per-user state) -----
 
@@ -170,29 +194,34 @@ class UpdatePlan:
         return self.rule.from_words_state(words, depth=self.depth)
 
 
-@functools.lru_cache(maxsize=64)
 def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
     """Resolve a config into an :class:`UpdatePlan` on ``device``.
 
     Duck-typed over ``EngineConfig`` and ``SNNConfig``: compensation resolves
     through ``effective_compensate()`` where the config has it, else its
     ``compensate`` property, and the clip window (``w_min``/``w_max``)
-    defaults to the SNN's fixed [0, 1].  Cached: a config is a frozen
-    dataclass, and a plan (its po2 tensors included) is never mutated, so
-    every caller may share it.
+    defaults to the SNN's fixed [0, 1].  Cached per (config, the rule
+    registered under its name now, device): a config is a frozen dataclass,
+    a plan (its po2 tensors included) is never mutated, so every caller may
+    share it, and a rule re-registered with other fields (mstdp's
+    ``reward``) gets a plan of its own.
     """
-    rule = cfg.learning_rule()
+    return _plan(cfg, cfg.learning_rule(), torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(cfg: Any, rule: LearningRule, device: torch.device) -> UpdatePlan:
     use_kernel, interpret = resolve_rule_backend(rule, cfg.backend)
     if hasattr(cfg, "effective_compensate"):
         compensate = cfg.effective_compensate()
     else:
         compensate = cfg.compensate
-    device = torch.device("cpu" if device is None else device)
     return UpdatePlan(
         rule=rule,
         backend=cfg.backend,
         use_kernel=use_kernel,
         interpret=interpret,
+        sparse=cfg.backend == "sparse",
         packed=cfg.use_packed_history(),
         depth=cfg.depth,
         pairing=cfg.pairing,
@@ -201,6 +230,7 @@ def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
         eta=cfg.eta,
         w_min=getattr(cfg, "w_min", 0.0),
         w_max=getattr(cfg, "w_max", 1.0),
+        max_events=cfg.max_events,
         device=device,
         po2=po2_vectors(cfg.stdp, cfg.depth, compensate=compensate, device=device),
         table=rule.read_table(cfg.stdp, cfg.depth, device=device),

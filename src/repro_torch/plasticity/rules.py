@@ -5,12 +5,14 @@ state is the bitplane spike history; the timing difference is never
 computed: the register read is the update (eq. 2 / Fig. 3).  ``itp`` is
 compensated by default (eq. 18), ``itp_nocomp`` reads the raw po2 weights.
 Its hooks reach the dense kernels (``itp_stdp``: the engine update and the
-SNN fc layers' per-sample delta) and the conv kernel (``itp_stdp_conv``).
+SNN fc layers' per-sample delta), the conv kernel (``itp_stdp_conv``) and
+the event-driven ops (``itp_sparse``).
 
 ``CounterRule`` — ``exact``, ``linear`` and ``imstdp``, the paper's
 explicit-Δt baselines: state is one saturating last-spike counter per
 neuron, and the window (``kernels/itp_counter/ref.py``) is evaluated on the
-per-pair Δt.  Its hooks reach the ``itp_counter`` kernels.
+per-pair Δt.  Its hooks reach the ``itp_counter`` kernels; it has no
+event-driven datapath, so ``sparse`` refuses it at config construction.
 """
 from __future__ import annotations
 
@@ -19,11 +21,13 @@ import dataclasses
 import torch
 
 from repro_torch.core import history as H
-from repro_torch.core.stdp import STDPParams, magnitudes_depth_major, pair_gate
+from repro_torch.core.stdp import STDPParams, magnitudes_depth_major, pair_gate, po2_read
 from repro_torch.kernels.itp_counter.ops import (conv_counter_synapse_delta, counter_lut,
                                                  counter_synapse_delta,
                                                  counter_weight_update)
 from repro_torch.kernels.itp_counter.ref import counter_magnitudes
+from repro_torch.kernels.itp_sparse.ops import (sparse_conv_delta, sparse_synapse_delta,
+                                                sparse_weight_update)
 from repro_torch.kernels.itp_stdp.ops import (synapse_delta, synapse_delta_packed,
                                               weight_update_depth_major,
                                               weight_update_packed)
@@ -38,6 +42,7 @@ class HistoryRule(LearningRule):
 
     name: str = "itp"
     has_kernel: bool = True
+    has_sparse: bool = True
     compensate: bool | None = None  # None: defer to the config flag
 
     def init_state(self, n: int, depth: int, *, batch: tuple[int, ...] = (),
@@ -112,6 +117,48 @@ class HistoryRule(LearningRule):
                                              post_read, p, depth=depth, **kw)
         return conv_synapse_delta(pre_patches, post_spikes, pre_read, post_read, p, **kw)
 
+    # -- event-driven (sparse) datapath: the itp_sparse package -----------
+    # The magnitudes are kernel 1's register read of the same views (packed
+    # words unpacked, the plan's po2 vectors with the amplitudes folded in),
+    # so the sparse update is bit-equal to the fused one while w lies inside
+    # the clip window.
+    @staticmethod
+    def _register_read(view: torch.Tensor, po2: torch.Tensor, *, packed: bool,
+                       depth: int, pairing: str) -> torch.Tensor:
+        bits = H.unpack_words(view, depth).transpose(-1, -2) if packed else view
+        bits = bits.to(torch.float32)
+        if pairing == "nearest":
+            bits = bits * (torch.cumsum(bits, dim=-2) == 1.0)
+        return po2_read(po2, bits)
+
+    def _sparse_magnitudes(self, pre_read, post_read, *, packed, depth, pairing, po2):
+        kw = dict(packed=packed, depth=depth, pairing=pairing)
+        return (self._register_read(pre_read, po2[0], **kw),
+                self._register_read(post_read, po2[1], **kw))
+
+    def sparse_update(self, w, pre_spike, post_spike, pre_read, post_read,
+                      p: STDPParams, *, packed, depth, pairing, compensate, eta,
+                      w_min, w_max, max_events, po2, table=None):
+        del p, compensate, table  # the plan's po2 vectors carry them
+        ltp, ltd = self._sparse_magnitudes(pre_read, post_read, packed=packed,
+                                           depth=depth, pairing=pairing, po2=po2)
+        return sparse_weight_update(w, pre_spike, post_spike, ltp, ltd, eta=eta,
+                                    w_min=w_min, w_max=w_max, max_events=max_events)
+
+    def sparse_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
+                     *, packed, depth, pairing, compensate, max_events, po2, table=None):
+        del p, compensate, table
+        ltp, ltd = self._sparse_magnitudes(pre_read, post_read, packed=packed,
+                                           depth=depth, pairing=pairing, po2=po2)
+        return sparse_synapse_delta(pre_spike, post_spike, ltp, ltd, max_events=max_events)
+
+    def sparse_patch_delta(self, pre_patches, post_spikes, pre_read, post_read,
+                           p: STDPParams, *, depth, pairing, compensate, max_events,
+                           po2, table=None):
+        del p, depth, compensate, table
+        return sparse_conv_delta(pre_patches, post_spikes, pre_read, post_read, *po2,
+                                 nearest=pairing == "nearest", max_events=max_events)
+
 
 @dataclasses.dataclass(frozen=True)
 class CounterRule(LearningRule):
@@ -131,6 +178,7 @@ class CounterRule(LearningRule):
     name: str = "exact"
     window: str = "exact"
     has_kernel: bool = True
+    has_sparse: bool = False
     compensate: bool | None = None
 
     def init_state(self, n: int, depth: int, *, batch: tuple[int, ...] = (),

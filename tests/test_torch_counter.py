@@ -307,7 +307,10 @@ def test_registry_and_validation_match_reference():
     assert set(RULES) <= set(plasticity.rule_names())
     assert set(RULES) <= set(plasticity.kernel_rule_names())
     assert isinstance(plasticity.get_rule("exact"), plasticity.CounterRule)
-    assert "mstdp" in plasticity.UNPORTED_RULES
+    assert not isinstance(plasticity.get_rule("mstdp"), plasticity.CounterRule)
+    for backend in ("reference", "fused", "fused_interpret", "sparse"):
+        TE.EngineConfig(rule="mstdp", backend=backend)
+        TS.mnist_2layer("mstdp", backend=backend)
     for rule in RULES:
         for backend in ("reference", "fused", "fused_interpret"):
             TE.EngineConfig(rule=rule, backend=backend)
@@ -317,8 +320,12 @@ def test_registry_and_validation_match_reference():
         with pytest.raises(ValueError) as ref:
             JEngineConfig(rule=rule, pairing="all")
         assert str(port.value) == str(ref.value)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
-        TE.EngineConfig(rule="exact", backend="sparse")
+    for rule in RULES:          # no event-driven datapath: the reference's message
+        with pytest.raises(ValueError) as port:
+            TE.EngineConfig(rule=rule, backend="sparse")
+        with pytest.raises(ValueError) as ref:
+            JEngineConfig(rule=rule, backend="sparse")
+        assert str(port.value) == str(ref.value)
 
 
 # ---------------------------------------------------------------------------

@@ -149,20 +149,25 @@ def test_state_conversion_round_trip():
 
 
 def test_unported_cells_fail_at_config_construction():
-    for rule in ("mstdp",):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item 12"):
-            TE.EngineConfig(rule=rule)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
-        TE.EngineConfig(backend="sparse")
+    # every cell of the reference is ported: mstdp (item 12) and the sparse
+    # backend (item 11) construct and run
+    x = torch.from_numpy((np.random.default_rng(0).random((6, 8)) < 0.4).astype(np.float32))
+    for kw in ({"rule": "mstdp"}, {"backend": "sparse"},
+               {"rule": "mstdp", "backend": "sparse", "max_events": 2}):
+        cfg = TE.EngineConfig(n_pre=8, n_post=4, **kw)
+        state = TE.init_engine(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        out, post = TE.run_engine(state, x, cfg)
+        assert post.shape == (6, 4) and not torch.equal(out.w, state.w)
     with pytest.raises(ValueError, match="unknown learning rule"):
         TE.EngineConfig(rule="bogus")
     with pytest.raises(ValueError, match="pairing"):
         TE.EngineConfig(pairing="bogus")
     with pytest.raises(ValueError, match="max_events"):
         TE.EngineConfig(max_events=0)
-    ported = ("exact", "imstdp", "itp", "itp_nocomp", "linear")
+    ported = ("exact", "imstdp", "itp", "itp_nocomp", "linear", "mstdp")
     assert plasticity.rule_names() == ported
     assert plasticity.kernel_rule_names() == ported
+    assert plasticity.sparse_rule_names() == ("itp", "itp_nocomp", "mstdp")
 
 
 def test_plan_reads_the_config():

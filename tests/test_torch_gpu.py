@@ -759,3 +759,238 @@ def test_itp_adamw_on_card_kernels_equal_plain_quantiser(cuda):
         assert PK.po2_encode.launches == PK.po2_decode.launches == want
         runs[use_kernel] = tree_leaves((p, st.mu, st.nu))
     assert all(torch.equal(a, b) for a, b in zip(runs[True], runs[False]))
+
+
+# ---------------------------------------------------------------------------
+# Rank1Rule's magnitude planes (kernels 2 and 4) and the sparse backend
+# ---------------------------------------------------------------------------
+
+def _magnitudes(shape, seed, device):
+    """Non-binary float32 magnitudes of mstdp's form, reward·(elig/128)·po2
+    read: a po2 sum scaled by a random eligibility word, zeros included."""
+    g = torch.Generator().manual_seed(seed)
+    po2 = po2_vectors(STDPParams(), 7)[1]
+    bits = (torch.rand((7, *shape), generator=g) < 0.3).float()
+    read = (po2.reshape(7, *([1] * len(shape))) * bits).sum(0)
+    elig = torch.randint(0, 128, shape, generator=g).float() / 128.0
+    return (elig * read).to(device)
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_kernel_on_a_depth1_magnitude_plane(cuda, shape):
+    """Kernel 2 reads a one-row plane of magnitudes with po2 = [1.0] and no
+    nearest mask: the product, bit-equal to the plain version, for the update
+    and for the raw delta (zero w, unbounded clip)."""
+    lanes, n_pre, n_post = shape
+    x = _inputs(lanes, n_pre, n_post, 1, seed=n_pre, device=cuda)
+    ltp = _magnitudes((lanes, 1, n_pre), 1, cuda)
+    ltd = _magnitudes((lanes, 1, n_post), 2, cuda)
+    one = torch.ones((1,), device=cuda)
+    assert bool(((ltp > 0) & (ltp != 1.0)).any())
+    for w, kw in ((x["w"], dict(eta=0.3, w_min=0.0, w_max=1.0)),
+                  (torch.zeros_like(x["w"]), dict(eta=1.0, w_min=-math.inf, w_max=math.inf))):
+        got = K.itp_stdp_update(w, x["pre_s"], x["post_s"], ltp, ltd, one, one,
+                                nearest=False, **kw)
+        plain = R.itp_stdp_update_ref(w, x["pre_s"], x["post_s"], ltp, ltd, one, one,
+                                      nearest=False, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+    want = (x["post_s"][..., None, :] * (1 - x["pre_s"])[..., :, None] * ltp[:, 0, :, None]
+            - x["pre_s"][..., :, None] * (1 - x["post_s"])[..., None, :] * ltd[:, 0, None, :])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES[:6])
+def test_conv_kernel_on_a_depth1_magnitude_plane(cuda, shape):
+    """Kernel 4 stages a one-plane float32 operand (the one-pass body) and
+    reads it as a product under ``nearest=False``."""
+    m, kk, cc = shape
+    x = _conv_inputs(m, kk, cc, 1, seed=m, device=cuda)
+    ltp, ltd = _magnitudes((1, m, kk), 3, cuda), _magnitudes((1, m, cc), 4, cuda)
+    one = torch.ones((1,), device=cuda)
+    got = CK.itp_stdp_conv_delta(x["pre"], x["post"], ltp, ltd, one, one, nearest=False)
+    again = CK.itp_stdp_conv_delta(x["pre"], x["post"], ltp, ltd, one, one, nearest=False)
+    plain = CR.itp_stdp_conv_delta_ref(x["pre"], x["post"], ltp, ltd, one, one,
+                                       nearest=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, plain, **CONV_TOL)
+    if m:
+        assert float(got.abs().max()) > 0.0
+
+
+def _sparse_case(seed, device, lanes=(3,), n_pre=300, n_post=70):
+    g = torch.Generator().manual_seed(seed)
+    x = dict(w=torch.rand((*lanes, n_pre, n_post), generator=g) * 0.6 + 0.2,
+             pre=(torch.rand((*lanes, n_pre), generator=g) < 0.05).float(),
+             post=(torch.rand((*lanes, n_post), generator=g) < 0.1).float(),
+             ltp=torch.rand((*lanes, n_pre), generator=g),
+             ltd=torch.rand((*lanes, n_post), generator=g))
+    x["pre"][0] = 0.0                   # a lane with no pre event ...
+    x["post"][-1] = 0.0                 # ... and one with no post event
+    return {k: v.to(device) for k, v in x.items()}
+
+
+def _sparse_calls(x, cap):
+    from repro_torch.kernels.itp_sparse import ops as SO
+
+    return {
+        "update": lambda: SO.sparse_weight_update(x["w"], x["pre"], x["post"], x["ltp"],
+                                                  x["ltd"], eta=0.3, max_events=cap),
+        "delta": lambda: SO.sparse_synapse_delta(x["pre"], x["post"], x["ltp"], x["ltd"],
+                                                 max_events=cap),
+    }
+
+
+@pytest.mark.parametrize("cap", (None, 1, 4, 1000))
+def test_sparse_ops_on_card_equal_the_cpu(cuda, cap):
+    """Sentinel padding, overflow past the cap and empty lists never reach an
+    index op on the card (a device assert would end the context); the card
+    and the CPU give the same bits.  The conv delta runs kernel 4 on the
+    gathered rows."""
+    from repro_torch.kernels.itp_sparse import ops as SO
+
+    x = _sparse_case(7, cuda)
+    xc = {k: v.cpu() for k, v in x.items()}
+    for name, call in _sparse_calls(x, cap).items():
+        got = call()
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), _sparse_calls(xc, cap)[name]()), name
+    c = _conv_inputs(1600, 108, 24, 7, seed=9, device=cuda)
+    c["pre"][c["pre"].sum(1) > 20] = 0.0             # some rows silent on both sides
+    c["post"][:800] = 0.0
+    po2 = po2_vectors(STDPParams(), 7, device=cuda)
+    CK.itp_stdp_conv_delta.launches = 0
+    got = SO.sparse_conv_delta(c["pre"], c["post"], c["pre_b"], c["post_b"], *po2,
+                               max_events=cap)
+    torch.cuda.synchronize()
+    assert CK.itp_stdp_conv_delta.launches == 1
+    cpu = SO.sparse_conv_delta(*(c[k].cpu() for k in ("pre", "post", "pre_b", "post_b")),
+                               *(p.cpu() for p in po2), max_events=cap)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_sparse_update_makes_no_host_sync(cuda):
+    """The sparse engine update, fc delta and conv delta run with the sync
+    debug mode set to raise: nothing waits for the card."""
+    from repro_torch import plasticity
+    from repro_torch.kernels.dispatch import im2col_2d
+
+    x = _sparse_case(8, cuda, lanes=(8,), n_pre=784, n_post=100)
+    g = torch.Generator().manual_seed(3)
+    runs = []
+    for rule in ("itp", "mstdp"):
+        cfg = EngineConfig(n_pre=784, n_post=100, rule=rule, backend="sparse", max_events=40)
+        plan = plasticity.make_plan(cfg, cuda)
+        # engine states with a lane axis, and an SNN fc layer's flat ones
+        states = [plan.rule.init_state(n, 7, batch=b, device=cuda)
+                  for n, b in ((784, (8,)), (100, (8,)), (8 * 784, ()), (8 * 100, ()))]
+        for _ in range(3):
+            spikes = [(torch.rand((8, n), generator=g) < 0.1).to(cuda) for n in (784, 100)]
+            states = [plan.rule.step(st, s, depth=7) for st, s in
+                      zip(states, (*spikes, spikes[0].reshape(-1), spikes[1].reshape(-1)))]
+        runs.append((plan, *states))
+    # the DCSNN's conv1 after one step, and its conv delta's operands
+    net = TS.fmnist_dcsnn(backend="sparse")
+    st = TS.init_snn(net, 4, generator=torch.Generator().manual_seed(0), device=cuda)
+    raster = (torch.rand((2, 4, 28, 28, 1), generator=g) < 0.2).float().to(cuda)
+    st, _ = TS.snn_step(st, raster[0], net)
+    layer, spec = st.layers[0], net.layers[0]
+    patches = im2col_2d(raster[1], spec.kernel, spec.stride)
+    s_out = (torch.rand(patches.shape[:3] + (spec.out_features,), generator=g) < 0.1)
+    conv = (plasticity.make_plan(net, cuda),
+            (layer.pre_hist, layer.post_hist, patches.reshape(4, -1, patches.shape[-1]),
+             s_out.float().to(cuda)),
+            dict(in_shape=(28, 28, 1), kind="conv2d", kernel=spec.kernel, stride=spec.stride))
+    for plan, pre_st, post_st, *_ in runs:                 # warm: build, caches
+        plan.update(x["w"], x["pre"], x["post"], pre_st, post_st)
+    conv[0].conv_delta(*conv[1], **conv[2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for plan, pre_st, post_st, pre_fc, post_fc in runs:
+            plan.update(x["w"], x["pre"], x["post"], pre_st, post_st)
+            plan.fc_delta(pre_fc, post_fc, x["pre"], x["post"])
+        conv[0].conv_delta(*conv[1], **conv[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_sparse_ops_on_two_streams_at_once(cuda):
+    """Two streams run the sparse ops in turns on different inputs; every
+    result equals the one-stream result bit for bit."""
+    xs = [_sparse_case(s, cuda, lanes=(8,), n_pre=784, n_post=100) for s in (10, 11)]
+    calls = [_sparse_calls(x, 16) for x in xs]
+    want = [{name: call() for name, call in c.items()} for c in calls]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[] for _ in xs]
+    for _ in range(10):
+        for c, s, out in zip(calls, streams, outs):
+            with torch.cuda.stream(s):
+                out.append({name: call() for name, call in c.items()})
+    torch.cuda.synchronize()
+    for w, out in zip(want, outs):
+        for o in out:
+            assert all(torch.equal(o[name], w[name]) for name in w)
+    assert not torch.equal(want[0]["update"], want[1]["update"])
+
+
+def test_sparse_engine_on_card_bit_equal_to_fused(cuda):
+    """At the 2layer-snn fc width the sparse itp engine follows the fused one
+    bit for bit (w stays inside the clip window), at a realistic density."""
+    from repro_torch.core import engine as TE
+
+    g = torch.Generator().manual_seed(12)
+    w0 = torch.rand((784, 100), generator=g) * 0.6 + 0.2
+    raster = (torch.rand((32, 784), generator=g) < 0.02).float().to(cuda)
+    runs = {}
+    for backend in ("fused", "sparse"):
+        cfg = EngineConfig(n_pre=784, n_post=100, backend=backend)
+        st = TE.init_engine(cfg, w_init=w0, device=cuda)
+        runs[backend] = TE.run_engine(st, raster, cfg)
+    (fs, fp), (ss, sp) = runs["fused"], runs["sparse"]
+    assert fp.any() and torch.equal(fp, sp) and torch.equal(fs.w, ss.w)
+
+
+@pytest.mark.parametrize("net", ("engine", "6layer-dcsnn", "2layer-snn"))
+def test_mstdp_on_card_fused_matches_reference(cuda, net):
+    """mstdp's fused cells launch kernel 2 (engine, fc) and kernel 4 (conv)
+    on depth-1 magnitude planes, never the packed kernels 1 and 3; fused and
+    reference runs on the card agree on every spike and, within the parity
+    tolerance, on the weights."""
+    from repro_torch.core import engine as TE
+
+    t_steps = 12
+    runs = {}
+    for backend in ("fused", "reference"):
+        for k in (K.itp_stdp_update, K.itp_stdp_update_packed, CK.itp_stdp_conv_delta,
+                  CK.itp_stdp_conv_delta_packed):
+            k.launches = 0
+        if net == "engine":
+            cfg = EngineConfig(n_pre=784, n_post=100, rule="mstdp", backend=backend)
+            w0 = torch.Generator().manual_seed(1)
+            st = TE.init_engine(cfg, generator=w0, device=cuda)
+            raster = (torch.rand((t_steps, 784), generator=torch.Generator().manual_seed(2))
+                      < 0.1).float().to(cuda)
+            final, post = TE.run_engine(st, raster, cfg)
+            runs[backend] = ((final.w,), post)
+            conv = 0
+        else:
+            cfg = TS.PAPER_NETWORKS[net]("mstdp", backend=backend, quantise=False)
+            st = TS.init_snn(cfg, 4, generator=torch.Generator().manual_seed(1), device=cuda)
+            raster = (torch.rand((t_steps, 4, int(np.prod(cfg.input_shape))),
+                                 generator=torch.Generator().manual_seed(2)) < 0.3)
+            final, counts = TS.run_snn(st, raster.float().to(cuda), cfg)
+            runs[backend] = (final.weights, counts)
+            conv = sum(spec.kind.startswith("conv") for spec in cfg.layers)
+        if backend == "fused":
+            assert K.itp_stdp_update.launches == t_steps
+            assert CK.itp_stdp_conv_delta.launches == conv * t_steps
+            assert K.itp_stdp_update_packed.launches == CK.itp_stdp_conv_delta_packed.launches == 0
+    (wf, of), (wr, orf) = runs["fused"], runs["reference"]
+    assert of.sum() > 0 and torch.equal(of, orf)
+    for a, b in zip(wf, wr):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 if net != "engine" else 1e-6)

@@ -197,5 +197,7 @@ def test_launcher_serves_on_cpu(capsys):
     assert "plasticity cache: 40 B/session" in out
     with pytest.raises(SystemExit):
         launcher.main(["--device", "cpu", "--rule", "bogus"])
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 12"):
-        launcher.main(["--device", "cpu", "--rule", "mstdp"])
+    launcher.main(["--device", "cpu", "--rule", "mstdp"])
+    out = capsys.readouterr().out
+    assert "served 32/32 requests" in out and "rule=mstdp" in out
+    assert "plasticity cache: 160 B/session" in out          # 2 B × (64 + 16)

@@ -208,8 +208,11 @@ def test_snn_config_validates_like_the_reference():
         TS.mnist_2layer(theta_plus=-1.0)
     with pytest.raises(ValueError, match="theta_tau"):
         TS.mnist_2layer(theta_tau=0.0)
-    with pytest.raises(ValueError, match="item 11"):
-        TS.mnist_2layer(backend="sparse")
+    cfg = TS.mnist_2layer(n_hidden=10, backend="sparse", max_events=20)
+    st = TS.init_snn(cfg, 2, generator=torch.Generator().manual_seed(0), device="cpu")
+    raster = (torch.rand((3, 2, 784), generator=torch.Generator().manual_seed(1)) < 0.1)
+    st2, counts = TS.run_snn(st, raster.to(torch.float32), cfg)
+    assert counts.shape == (2, 10) and not torch.equal(st2.weights[0], st.weights[0])
     assert TS.mnist_2layer(rule="itp_nocomp").compensate is False
     assert TS.mnist_2layer().compensate is True
 

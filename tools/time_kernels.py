@@ -14,10 +14,22 @@ then timed: device ms per call from a profiler trace of 50 calls (the
 the four conv layers of ``chip_smoke.CONV_CASES``, depth 7, held against
 their plain versions within the conv tolerance and timed likewise.
 
+Then the side kernels, 7 (``lif_update``), 8 (``llsmu_multiply``), 9
+(``po2_encode``) and 10 (``po2_decode``), each held bit for bit against its
+plain version and timed beside its byte bound at the shape ``chip_smoke.py``
+times it (16 × 6,912 neurons for 7-8, qwen3-0.6b's embedding, 151,936 ×
+1,024, for 9-10) and at 2^24 elements, where bytes rather than the launch
+set the time; and a kernel with an empty body (built here from
+``NOOP_SOURCE``), launched with one block and with the grid kernel 7 takes
+at 16 × 6,912: the card's fixed cost of one kernel.  Each side case prints
+its fraction of the bound (bound / device time).
+
 Last it ranks the kernels as rule 2 of the port reads them: launches ×
 (device − bound), summed over the shapes, with each kernel's launches per
 shape in one run of ``chip_smoke.py`` (``LAUNCHES``: serving's 4 batches ×
-16 steps; the fc and conv layers once per step of the training runs).
+16 steps for itp and for mstdp; the fc and conv layers once per step of the
+training runs; the matrix phase's cells, at the audit's tiny shapes, are
+left out).
 
 ``--src DIR`` imports ``repro_torch`` from another checkout's ``src`` (an
 unpacked parent commit, say), so two versions of the kernels are compared
@@ -44,23 +56,110 @@ SHAPES = {"serving": (8, 784, 100), **{k: v for k, v in S.COUNTER_FC_CASES.items
                                        if k != "serving"}}
 DEPTH = 7
 # launches per shape in one run of chip_smoke.py: serving 4 batches x 16
-# steps; the DCSNN 3 batches x 30 steps (itp packed and unpacked, exact) or
-# 1 batch (imstdp); the CSNN 1 batch (itp packed and unpacked, linear); the
-# 2layer-snn protocol 6 epochs x 8 batches x 30 steps (itp, exact)
+# steps (itp packed and unpacked, exact, mstdp); the DCSNN 3 batches x 30
+# steps (itp packed and unpacked, exact) or 1 batch (imstdp, mstdp, itp on
+# sparse); the CSNN 1 batch (itp packed and unpacked, linear); the 2layer-snn
+# protocol 6 epochs x 8 batches x 30 steps (itp, exact, mstdp).  mstdp runs
+# kernels 2 and 4; the sparse DCSNN kernel 4 on its gathered (uncapped: all
+# M) rows
 _DCSNN, _CSNN, _CONV = {"DCSNN fc": 90}, {"CSNN fc": 30}, {
     "DCSNN conv1": 90, "DCSNN conv2": 90, "CSNN conv1": 30, "CSNN conv2": 30}
 LAUNCHES = {
     "itp_stdp_update_packed": {"serving": 64, "2layer-snn fc": 1440, **_DCSNN, **_CSNN},
-    "itp_stdp_update": {"serving": 64, **_DCSNN, **_CSNN},
+    "itp_stdp_update": {"serving": 128, "2layer-snn fc": 1440, "DCSNN fc": 120, **_CSNN},
     "counter_stdp_update[exact]": {"serving": 64, "2layer-snn fc": 1440, **_DCSNN},
     "counter_stdp_update[linear]": dict(_CSNN),
     "counter_stdp_update[imstdp]": {"DCSNN fc": 30},
     "itp_stdp_conv_delta_packed": dict(_CONV),
-    "itp_stdp_conv_delta": dict(_CONV),
+    "itp_stdp_conv_delta": {**_CONV, "DCSNN conv1": 150, "DCSNN conv2": 150},
     "counter_conv_delta[exact]": {"DCSNN conv1": 90, "DCSNN conv2": 90},
     "counter_conv_delta[linear]": {"CSNN conv1": 30, "CSNN conv2": 30},
     "counter_conv_delta[imstdp]": {"DCSNN conv1": 30, "DCSNN conv2": 30},
+    "lif_update": {"16x6912": 30},
+    "llsmu_multiply": {"16x6912": 30},
+    "po2_encode": {"embedding": 3},
+    "po2_decode": {"embedding": 3},
 }
+SIDE_LARGE = 1 << 24                    # elements: bytes, not the launch, set the time
+# a kernel with an empty body: its device time is the card's fixed cost of
+# one kernel at a given grid
+NOOP_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void noop_kernel() {}
+extern "C" int noop_launch(int blocks, int threads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  noop_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _noop_library():
+    """Build ``NOOP_SOURCE`` with the port's nvcc flags (once) and load it."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    h = hashlib.sha256((NOOP_SOURCE + " ".join(_build.NVCC_FLAGS)).encode()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / f"libnoop_{h}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = lib.with_suffix(".cu")
+        src.write_text(NOOP_SOURCE)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                       check=True, capture_output=True, text=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).noop_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _side_cases(device):
+    """Kernels 7-10 at the smoke's shapes and at SIDE_LARGE elements: name →
+    [(case, shape text, kernel call, plain call, elements)], each kernel's
+    outputs first held bit for bit against its plain version's."""
+    import torch
+
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.kernels.lif import kernel as LK
+    from repro_torch.kernels.lif.ref import lif_update_ref
+    from repro_torch.kernels.llsmu import kernel as MK
+    from repro_torch.kernels.llsmu.ref import llsmu_multiply_ref
+    from repro_torch.kernels.po2_quant import kernel as PK
+    from repro_torch.kernels.po2_quant import ref as PR
+
+    p = LIFParams()
+    kw = dict(alpha=p.alpha, e_rest=p.e_rest, v_th=p.v_th)
+    gen = torch.Generator(device=device).manual_seed(7)
+    pop = S.LIF_POPULATION[0] * S.LIF_POPULATION[1]
+    emb = (S.QWEN3["vocab"], S.QWEN3["d_model"])
+    cases = {}
+    for case, n, po2_shape in (("smoke", pop, emb), ("2^24", SIDE_LARGE, (SIDE_LARGE,))):
+        v = torch.rand((n,), generator=gen, device=device) * 1.7 - 0.5
+        i_in = torch.rand((n,), generator=gen, device=device) * 0.8
+        a = torch.randint(0, 1 << 12, (n,), generator=gen, device=device, dtype=torch.int32)
+        b = torch.full_like(a, round(p.alpha * (1 << S.LIF_FRAC_BITS)))
+        x = torch.randn(po2_shape, generator=gen, device=device) * 0.02
+        codes = PK.po2_encode(x)
+        what = "16x6912" if case == "smoke" else "2^24"
+        po2_what = "embedding" if case == "smoke" else "2^24"
+        for name, kern, plain, count, shape in (
+                ("lif_update", lambda v=v, i=i_in: LK.lif_update(v, i, **kw),
+                 lambda v=v, i=i_in: lif_update_ref(v, i, **kw), n, what),
+                ("llsmu_multiply", lambda a=a, b=b: (MK.llsmu_multiply(a, b),),
+                 lambda a=a, b=b: (llsmu_multiply_ref(a, b),), n, what),
+                ("po2_encode", lambda x=x: (PK.po2_encode(x),),
+                 lambda x=x: (PR.po2_encode_ref(x),), x.numel(), po2_what),
+                ("po2_decode", lambda c=codes: (PK.po2_decode(c),),
+                 lambda c=codes: (PR.po2_decode_ref(c),), codes.numel(), po2_what)):
+            outs, refs = kern(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
+                raise SystemExit(f"{name} at {shape}: kernel != plain version")
+            cases.setdefault(name, []).append((case, shape, kern, count))
+    return cases
 
 
 def main() -> int:
@@ -185,9 +284,36 @@ def main() -> int:
                   f"events {ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
             results.append(dict(name=name, case=case, shape=[m, k, c], device_ms=device_ms,
                                 ms=ms, bound_ms=bound_ms))
+    for name, cases in _side_cases(device).items():
+        for case, shape, kern, count in cases:
+            bound_ms, bound_by = S._side_bound(name, count)
+            ms = S._time_ms(kern)
+            device_ms = S._device_ms(kern, f"{name}_kernel")
+            frac = "not measured" if device_ms is None else f"{bound_ms / device_ms:.3f}"
+            dev = "not measured" if device_ms is None else f"{device_ms:.5f}"
+            print(f"[{label}] {name} {case} {shape} ({count} elements): device {dev} ms, "
+                  f"events {ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), fraction of "
+                  f"the bound {frac}", flush=True)
+            results.append(dict(name=name, case=shape, shape=[count], device_ms=device_ms,
+                                ms=ms, bound_ms=bound_ms))
+    noop = _noop_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lif_blocks = min((S.LIF_POPULATION[0] * S.LIF_POPULATION[1] + 255) // 256,
+                     16 * torch.cuda.get_device_properties(device).multi_processor_count)
+    for blocks in (1, lif_blocks):
+        call = lambda blocks=blocks: noop(blocks, 256, device.index or 0, stream)  # noqa: E731
+        if call() != 0:
+            raise SystemExit("noop kernel: launch failed")
+        ms = S._time_ms(call)
+        device_ms = S._device_ms(call, "noop_kernel")
+        dev = "not measured" if device_ms is None else f"{device_ms:.5f}"
+        print(f"[{label}] noop_kernel {blocks} block(s) of 256 threads: device {dev} ms, "
+              f"events {ms:.5f} ms", flush=True)
+        results.append(dict(name="noop_kernel", case=f"{blocks} blocks", shape=[blocks],
+                            device_ms=device_ms, ms=ms, bound_ms=0.0))
     ranking = {}
     for c in results:
-        n = LAUNCHES[c["name"]].get(c["case"], 0)
+        n = LAUNCHES.get(c["name"], {}).get(c["case"], 0)
         if n and c["device_ms"] is not None:
             ranking.setdefault(c["name"], 0.0)
             ranking[c["name"]] += n * (c["device_ms"] - c["bound_ms"])

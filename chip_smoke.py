@@ -63,8 +63,11 @@ printed on lines of its own:
              of the embedding's gradient; the drift model's §IV-A numbers
              (``paper_metrics``), the curve RMSE 0.094753 within 5e-4; then
              each kernel against its plain version at the path's shapes
-             (kernels 7-8 at 16 × 6,912, kernels 9-10 at the embedding leaf,
-             151,936 × 1,024), timed beside the byte bound;
+             (kernels 7-8 at 16 × 6,912, kernel 8 with one b, the variant
+             the datapath launches, and on b broadcast in memory; kernels
+             9-10 at the embedding leaf, 151,936 × 1,024), timed beside the
+             byte bound, and each wrapper's host µs per call at 16 × 6,912
+             elements;
 8. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
              at full width (28×28×1, conv 12@5×5, conv 24@3×3, fc 128; batch
              16, t_steps 30) on ``backend="fused"`` for 3 batches plus one
@@ -214,15 +217,24 @@ DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's ba
 DRIFT_RMSE_TOL = 5e-4
 # bytes per element, inputs read once and outputs written once: kernel 7 reads
 # v and I and writes v and the spikes (float32); kernel 8 reads two int32
-# operands and writes one; kernels 9-10 read four bytes and write four
-SIDE_BYTES = {"lif_update": 16, "llsmu_multiply": 12, "po2_encode": 8, "po2_decode": 8}
-# operations per element (counted at the float32 peak, the only non-tensor
-# rate of the data sheet): the LIF step's sub, mul, two adds, compare and
+# operands and writes one, or with one b (its scalar-b variant, the one the
+# neuron datapath launches) reads one and writes one; kernels 9-10 read four
+# bytes and write four
+SIDE_BYTES = {"lif_update": 16, "llsmu_multiply": 12, "llsmu_multiply[scalar b]": 8,
+              "po2_encode": 8, "po2_decode": 8}
+# operations per element: the LIF step's sub, mul, two adds, compare and
 # select; LLSMU's split, three Mitchell multiplies (leading-one counts,
 # mantissa shifts, branch, shift back) and recombination; the encoder's field
 # and mantissa extraction, compare, clip, bias and sign; the decoder's masks,
-# exponent build and select
-SIDE_OPS = {"lif_update": 6, "llsmu_multiply": 120, "po2_encode": 12, "po2_decode": 6}
+# exponent build and select.  The bound divides them by the data sheet's
+# float32 rate (FP32_OPS_PER_S), as it does for every kernel, so the rows
+# compare across the port; kernels 8-10 issue int32 instructions, which an
+# H100 SM runs on 64 lanes a clock, half its float32 lanes, and which count
+# one each where the float32 rate counts an FMA as two.  Kernel 8's real
+# limit is that integer issue, which PERF.md reckons from its SASS
+# (``tools/sass_count.py``); its byte bound is the one these rows keep
+SIDE_OPS = {"lif_update": 6, "llsmu_multiply": 120, "llsmu_multiply[scalar b]": 120,
+            "po2_encode": 12, "po2_decode": 6}
 
 
 def _phase(name: str, msg: str) -> None:
@@ -247,6 +259,26 @@ def _time_ms(fn, *, reps: int = 30, inner: int = 20) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def _host_us(fn, *, n: int = 1000, reps: int = 9) -> float:
+    """Host wall time of one call of ``fn`` in µs: the least over ``reps``
+    windows of ``n`` calls back to back with no synchronisation between them
+    (the wrapper's own launch path, as long as the device keeps up; the
+    least, since other work on the host's shared cores only adds time)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return min(times)
 
 
 def _device_ms(fn, kernel_name: str, *, n: int = 50, tries: int = 3) -> float | None:
@@ -918,6 +950,17 @@ def phase_side_numerics(device) -> dict:
     if not same or counts != want:
         raise SystemExit(f"neuron datapath: equal {same}, launches {counts}, want {want}")
     launches.update(lif_update=counts["lif_update"], llsmu_multiply=counts["llsmu_multiply"])
+    # the datapath's LLSMU multiply is the scalar-b variant (one alpha for
+    # every membrane, nothing broadcast in memory)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TL.lif_step_llsmu(fx, currents[0], p, frac_bits=LIF_FRAC_BITS)
+        torch.cuda.synchronize()
+    variants = sorted({e.name for e in prof.events() if "llsmu_multiply_kernel" in e.name})
+    _phase("side_numerics", f"lif_step_llsmu launches {variants}")
+    if len(variants) != 1 or "llsmu_multiply_kernel<true>" not in variants[0]:
+        raise SystemExit(f"lif_step_llsmu: expected the scalar-b kernel, got {variants}")
     stats = isi_histogram_batched(torch.stack(raster).reshape(LIF_STEPS, n_pop))
     depth = select_history_depth(stats)
     _phase("side_numerics", f"ISI of the fixed-point raster: {stats.n_spikes} spikes, "
@@ -1006,30 +1049,56 @@ def phase_side_numerics(device) -> dict:
     what = f"{LIF_POPULATION[0]}x{LIF_POPULATION[1]}"
     report["lif_update"] = _side_check("lif_update", what, LK.lif_update(v, i_in, **kw),
                                        lif_update_ref(v, i_in, **kw))
+    # kernel 8 as the neuron datapath launches it (one b, the Q8 alpha, for
+    # every element: the scalar-b variant) and on b broadcast in memory (the
+    # element-pair variant)
     e_q = round(p.e_rest * (1 << LIF_FRAC_BITS))
     a = torch.abs(fx.v_q - e_q).contiguous()
-    b = torch.full_like(a, round(p.alpha * (1 << LIF_FRAC_BITS)))
-    report["llsmu_multiply"] = _side_check("llsmu_multiply", what,
-                                           (MK.llsmu_multiply(a, b),),
+    alpha_q = torch.tensor([round(p.alpha * (1 << LIF_FRAC_BITS))], dtype=torch.int32,
+                           device=device)
+    b = alpha_q.expand(a.shape).contiguous()
+    report["llsmu_multiply"] = _side_check("llsmu_multiply", f"{what} scalar b",
+                                           (MK.llsmu_multiply(a, alpha_q),),
                                            (llsmu_multiply_ref(a, b),))
+    pair = _side_check("llsmu_multiply", f"{what} element pairs", (MK.llsmu_multiply(a, b),),
+                       (llsmu_multiply_ref(a, b),))
     codes = PK.po2_encode(tok)
     emb = f"embedding {tok.shape[0]}x{tok.shape[1]}"
     report["po2_encode"] = _side_check("po2_encode", emb, (codes,), (PR.po2_encode_ref(tok),))
     report["po2_decode"] = _side_check("po2_decode", emb, (PK.po2_decode(codes),),
                                        (PR.po2_decode_ref(codes),))
+    # the host's cost of one wrapper call, each kernel at n_pop elements
+    small_x, small_c = tok.reshape(-1)[:n_pop], codes.reshape(-1)[:n_pop]
+    host = {"lif_update": lambda: LK.lif_update(v, i_in, **kw),
+            "llsmu_multiply": lambda: MK.llsmu_multiply(a, alpha_q),
+            "llsmu_multiply[element pairs]": lambda: MK.llsmu_multiply(a, b),
+            "po2_encode": lambda: PK.po2_encode(small_x),
+            "po2_decode": lambda: PK.po2_decode(small_c)}
+    host_us = {name: _host_us(fn) for name, fn in host.items()}
+    _phase("side_numerics", f"host µs per wrapper call at {n_pop} elements (least of 9 "
+           "windows of 1,000 calls, no sync): "
+           + ", ".join(f"{k} {us:.3f}" for k, us in host_us.items()))
     timings = {
         "lif_update": (lambda: LK.lif_update(v, i_in, **kw),
-                       lambda: lif_update_ref(v, i_in, **kw), n_pop, what),
-        "llsmu_multiply": (lambda: MK.llsmu_multiply(a, b), lambda: llsmu_multiply_ref(a, b),
-                           n_pop, what),
+                       lambda: lif_update_ref(v, i_in, **kw), "lif_update", n_pop, what),
+        "llsmu_multiply": (lambda: MK.llsmu_multiply(a, alpha_q),
+                           lambda: llsmu_multiply_ref(a, b), "llsmu_multiply[scalar b]", n_pop,
+                           f"{what} scalar b"),
         "po2_encode": (lambda: PK.po2_encode(tok), lambda: PR.po2_encode_ref(tok),
-                       tok.numel(), emb),
+                       "po2_encode", tok.numel(), emb),
         "po2_decode": (lambda: PK.po2_decode(codes), lambda: PR.po2_decode_ref(codes),
-                       codes.numel(), emb),
+                       "po2_decode", codes.numel(), emb),
     }
-    for name, (kern, plain, n, shape) in timings.items():
-        report[name].update(_timed(name, shape, kern, plain, _side_bound(name, n),
-                                   f"{name}_kernel", phase="side_numerics"), shape=shape)
+    for name, (kern, plain, bound, n, shape) in timings.items():
+        report[name].update(_timed(name, shape, kern, plain, _side_bound(bound, n),
+                                   f"{name}_kernel", phase="side_numerics"), shape=shape,
+                            host_us=host_us[name])
+    pair.update(_timed("llsmu_multiply", f"{what} element pairs",
+                       lambda: MK.llsmu_multiply(a, b), lambda: llsmu_multiply_ref(a, b),
+                       _side_bound("llsmu_multiply", n_pop), "llsmu_multiply_kernel<false",
+                       phase="side_numerics"),
+                host_us=host_us["llsmu_multiply[element pairs]"])
+    report["llsmu_multiply"]["element_pairs"] = pair
     return {"kernels": report, "launches": launches}
 
 
@@ -1617,7 +1686,8 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "device_ms": k["device_ms"], "shape": k["shape"],
-         **({"launches_by_shape": k["launches_by_shape"]} if "launches_by_shape" in k else {})}
+         **{key: k[key] for key in ("launches_by_shape", "host_us", "element_pairs")
+            if key in k}}
         for name, k in kernels.items()]}
     bad = [k["name"] for k in line["kernels"]
            if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms"))]

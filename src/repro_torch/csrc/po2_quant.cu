@@ -20,12 +20,15 @@
 //
 // Bound: memory.  8 bytes move per element each way (float32 in and int32
 // out, or the reverse) against a handful of integer operations.  Design: one
-// thread per element, grid-stride over the flat arrays (elementwise.cuh),
+// thread per element, grid-stride over the flat arrays, at most
+// BLOCKS_PER_SM blocks on each SM (the device set up by elementwise.cuh),
 // ragged end masked, no shared memory; neighbouring threads touch
 // neighbouring words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "elementwise.cuh"
 
@@ -33,6 +36,7 @@ namespace {
 
 constexpr int BIAS = 64;
 constexpr uint32_t SQRT2_MANTISSA = 0x3504F4u;
+constexpr int BLOCKS_PER_SM = 16;
 
 __global__ void po2_encode_kernel(int32_t* __restrict__ out, const float* __restrict__ x,
                                   int64_t n) {
@@ -64,6 +68,35 @@ __global__ void po2_decode_kernel(float* __restrict__ out, const int32_t* __rest
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Sets `sms` to the SM count of `device`, looked up once per device and
+// kept in the library (relaxed atomics: a race computes the same value
+// twice); returns the cudaError_t of the query (0 = success).
+int sm_count(int device, int* sms) {
+  static std::atomic<int> cache[MAX_DEVICES];
+  const bool cached = device >= 0 && device < MAX_DEVICES;
+  int count = cached ? cache[device].load(std::memory_order_relaxed) : 0;
+  if (count == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (cached) cache[device].store(count, std::memory_order_relaxed);
+  }
+  *sms = count;
+  return 0;
+}
+
+// Selects `device` and sets `blocks` for n > 0 elements, one a thread.
+int grid(int64_t n, int device, int* blocks) {
+  int sms = 0;
+  int err = elementwise::set_device(device);
+  if (err == 0) err = sm_count(device, &sms);
+  if (err != 0) return err;
+  *blocks = elementwise::blocks(n, static_cast<int64_t>(sms) * BLOCKS_PER_SM);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -73,7 +106,7 @@ extern "C" {
 int po2_encode(int32_t* out, const float* x, int64_t n, int device, void* stream) {
   if (n <= 0) return 0;
   int blocks = 0;
-  const int err = elementwise::grid(n, device, &blocks);
+  const int err = grid(n, device, &blocks);
   if (err != 0) return err;
   po2_encode_kernel<<<blocks, elementwise::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       out, x, n);
@@ -84,7 +117,7 @@ int po2_encode(int32_t* out, const float* x, int64_t n, int device, void* stream
 int po2_decode(float* out, const int32_t* c, int64_t n, int device, void* stream) {
   if (n <= 0) return 0;
   int blocks = 0;
-  const int err = elementwise::grid(n, device, &blocks);
+  const int err = grid(n, device, &blocks);
   if (err != 0) return err;
   po2_decode_kernel<<<blocks, elementwise::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       out, c, n);

@@ -82,12 +82,17 @@ def build_all() -> dict[str, Path]:
     return {stem: out for stem, (_, out) in targets.items()}
 
 
-def library(stem: str) -> ctypes.CDLL:
-    """The loaded shared library built from ``csrc/<stem>.cu``."""
+def library(stem: str, on_load=None) -> ctypes.CDLL:
+    """The loaded shared library built from ``csrc/<stem>.cu``.  ``on_load``,
+    if given, is called with the library once, when it first loads (to set
+    its entry points' argument types)."""
     with _lock:
         if stem not in _loaded:
             libs = build_all()
             if stem not in libs:
                 raise RuntimeError(f"no CUDA source csrc/{stem}.cu")
-            _loaded[stem] = ctypes.CDLL(str(libs[stem]))
+            lib = ctypes.CDLL(str(libs[stem]))
+            if on_load is not None:
+                on_load(lib)
+            _loaded[stem] = lib
         return _loaded[stem]

@@ -18,31 +18,38 @@ from repro_torch.kernels import _build
 
 def load(stem: str, entry_points: dict[str, list]) -> ctypes.CDLL:
     """The library built from ``csrc/<stem>.cu`` with each entry point's
-    argument types set (every entry point returns an int error code)."""
-    lib = _build.library(stem)
-    for name, argtypes in entry_points.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [*argtypes, ctypes.c_int, ctypes.c_void_p]   # + device, stream
-        fn.restype = ctypes.c_int
-    err = getattr(lib, f"{stem}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
+    argument types set (every entry point returns an int error code); the
+    types are set once, when the library first loads."""
+    def set_types(lib: ctypes.CDLL) -> None:
+        for name, argtypes in entry_points.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [*argtypes, ctypes.c_int, ctypes.c_void_p]   # + device, stream
+            fn.restype = ctypes.c_int
+        err = getattr(lib, f"{stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+
+    return _build.library(stem, set_types)
 
 
-def check(symbol: str, operands: dict[str, tuple[torch.Tensor, torch.dtype]]
+def check(symbol: str, operands: dict[str, tuple[torch.Tensor, torch.dtype]],
+          scalars: dict[str, tuple[torch.Tensor, torch.dtype]] | None = None
           ) -> torch.device:
     """Raise unless every operand lies on the first one's CUDA device, has the
-    first one's shape, its own stated dtype, and is contiguous."""
+    first one's shape, its own stated dtype, and is contiguous; each of
+    ``scalars`` (one element each, of any shape) is checked for device and
+    dtype alone."""
     first = next(iter(operands.values()))[0]
     dev, shape = first.device, first.shape
     if dev.type != "cuda":
         raise ValueError(f"{symbol}: tensors must be on a CUDA device or the CPU, got {dev}")
-    for name, (t, dtype) in operands.items():
+    for name, (t, dtype) in {**operands, **(scalars or {})}.items():
         if t.device != dev:
             raise ValueError(f"{symbol}: {name} is on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{symbol}: {name} must be {dtype}, got {t.dtype}")
+        if name not in operands:
+            continue
         if t.shape != shape:
             raise ValueError(f"{symbol}: {name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")

@@ -601,7 +601,9 @@ def test_counter_net_on_card_fused_matches_reference(cuda, net, rule):
 # the side kernels: fused LIF (7), LLSMU (8), po2 encode (9) and decode (10)
 # ---------------------------------------------------------------------------
 
-SIDE_SHAPES = ((1,), (127,), (6913,), (16, 6912))
+# one element, ragged tails of a four-element vector (3, 5, 127, 6,913), the
+# DCSNN conv1 population and a size that walks the grid more than once
+SIDE_SHAPES = ((1,), (3,), (4,), (5,), (127,), (6913,), (16, 6912), (2**20 + 3,))
 LIF_PARAMS = (dict(), dict(tau=2.0, v_th=0.7), dict(tau=20.0, v_th=1.0, e_rest=-0.5))
 
 
@@ -623,6 +625,10 @@ def test_lif_kernel_bit_equal_to_plain_version(cuda, shape, params):
         assert torch.equal(st.v, ref_st.v) and torch.equal(spk, ref_spk)
 
 
+# the default Q12 mantissas first, then the ends of the accepted range
+LLSMU_FRAC_BITS = (12, 0, 1, 28, 29)
+
+
 def _operands(shape, top, g):
     n = int(np.prod(shape))
     bits = torch.randint(0, top + 1, (2, n), generator=g)
@@ -638,15 +644,157 @@ def _operands(shape, top, g):
 @pytest.mark.parametrize("n_bits", (3, 4, 5, 8))
 def test_llsmu_kernel_bit_equal_to_plain_version(cuda, shape, n_bits):
     """Operands up to 2^30, beyond 2N bits too, where wrapping int32
-    arithmetic and shifts past the width decide the result."""
+    arithmetic and shifts past the width decide the result; at the default
+    Q12 mantissas and at the ends of the accepted frac_bits, 0 and 29, where
+    the kernel's barrel shifts reach their least and greatest amounts."""
     g = torch.Generator().manual_seed(n_bits * 10 + len(shape))
     for top in (2 * n_bits, 30):
         a, b = _operands(shape, top, g).to(cuda)
-        out = MK.llsmu_multiply(a, b, n_bits=n_bits)
-        plain = llsmu_multiply_ref(a, b, n_bits=n_bits)
+        for frac_bits in LLSMU_FRAC_BITS:
+            kw = dict(n_bits=n_bits, frac_bits=frac_bits)
+            out = MK.llsmu_multiply(a, b, **kw)
+            plain = llsmu_multiply_ref(a, b, **kw)
+            torch.cuda.synchronize()
+            assert out.dtype == torch.int32 and torch.equal(out, plain), (top, frac_bits)
+        assert torch.equal(out.cpu(), llsmu_multiply_ref(a.cpu(), b.cpu(), **kw))
+
+
+@pytest.mark.parametrize("shape", SIDE_SHAPES)
+@pytest.mark.parametrize("n_bits", (3, 4, 5, 8))
+def test_llsmu_scalar_b_equals_materialised_operands(cuda, shape, n_bits):
+    """The scalar-b variant (one b for every element) against the plain
+    version and the element-pair variant on b broadcast in memory, for b of
+    every width up to 2^30, 0 included, at every frac_bits of
+    LLSMU_FRAC_BITS."""
+    g = torch.Generator().manual_seed(n_bits * 10 + len(shape) + 5)
+    for top in (2 * n_bits, 30):
+        a, bs = _operands(shape, top, g)
+        for bv in (0, 1, int(bs.reshape(-1)[-1]), (1 << top) - 1):
+            for one in (torch.tensor(bv, dtype=torch.int32), torch.tensor([bv], dtype=torch.int32)):
+                a_d, one_d = a.to(cuda), one.to(cuda)
+                full = one_d.reshape(()).expand(shape).contiguous()
+                for frac_bits in LLSMU_FRAC_BITS:
+                    kw = dict(n_bits=n_bits, frac_bits=frac_bits)
+                    out = MK.llsmu_multiply(a_d, one_d, **kw)
+                    pair = MK.llsmu_multiply(a_d, full, **kw)
+                    plain = llsmu_multiply_ref(a_d, full, **kw)
+                    torch.cuda.synchronize()
+                    assert out.shape == a.shape and out.dtype == torch.int32
+                    assert torch.equal(out, plain) and torch.equal(pair, plain), (
+                        top, bv, frac_bits)
+
+
+@pytest.mark.parametrize("n", [math.prod(shape) for shape in SIDE_SHAPES])
+def test_side_kernels_on_unaligned_views(cuda, n):
+    """Contiguous views one element into their storage (not 16-byte
+    aligned): kernels 7 and 8 (both variants) take every element one a
+    thread, kernels 9 and 10 as always; each bit-equal to its plain version."""
+    g = torch.Generator().manual_seed(n)
+
+    def view(x):
+        out = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+        out.copy_(x)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    v = view((torch.rand(n, generator=g) * 1.7 - 0.5).to(cuda))
+    i_in = view((torch.rand(n, generator=g) * 0.8).to(cuda))
+    kw = dict(alpha=0.9, e_rest=0.0, v_th=1.0)
+    v2, s = LK.lif_update(v, i_in, **kw)
+    pv, ps = lif_update_ref(v, i_in, **kw)
+    a, b = (view(x.to(cuda)) for x in _operands((n,), 30, g))
+    one = view(b[:1])
+    out, out_one = MK.llsmu_multiply(a, b), MK.llsmu_multiply(a, one)
+    x = view(_po2_values((n,), g).to(cuda))
+    codes = view(PK.po2_encode(x))
+    back = PK.po2_decode(codes)
+    torch.cuda.synchronize()
+    assert torch.equal(v2, pv) and torch.equal(s, ps)
+    assert torch.equal(out, llsmu_multiply_ref(a, b))
+    assert torch.equal(out_one, llsmu_multiply_ref(a, one.expand(n)))
+    assert torch.equal(codes, PR.po2_encode_ref(x))
+    assert torch.equal(back.view(torch.int32), PR.po2_decode_ref(codes).view(torch.int32))
+
+
+def test_side_kernels_on_two_streams_at_once(cuda):
+    """Two streams launch kernels 7 and 8 (both variants) in turns on
+    different inputs at the path's 16 × 6,912; every result equals its plain
+    version."""
+    shape = (16, 6912)
+    kw = dict(alpha=0.9, e_rest=0.0, v_th=1.0)
+    calls = []
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(seed)
+        v = (torch.rand(shape, generator=g) * 1.7 - 0.5).to(cuda)
+        i_in = (torch.rand(shape, generator=g) * 0.8).to(cuda)
+        a, b = _operands(shape, 12, g).to(cuda)
+        one = b[:1, :1].clone()
+        calls.append({
+            "lif": (lambda v=v, i=i_in: LK.lif_update(v, i, **kw),
+                    lambda v=v, i=i_in: lif_update_ref(v, i, **kw)),
+            "llsmu": (lambda a=a, b=b: (MK.llsmu_multiply(a, b),),
+                      lambda a=a, b=b: (llsmu_multiply_ref(a, b),)),
+            "llsmu_scalar_b": (lambda a=a, o=one: (MK.llsmu_multiply(a, o),),
+                               lambda a=a, o=one: (llsmu_multiply_ref(a, o.expand(shape)),)),
+        })
+    streams = [torch.cuda.Stream() for _ in calls]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [{name: [] for name in calls[0]} for _ in calls]
+    for _ in range(10):
+        for c, st, out in zip(calls, streams, outs):
+            with torch.cuda.stream(st):
+                for name, (kern, _) in c.items():
+                    out[name].append(kern())
+    torch.cuda.synchronize()
+    for c, out in zip(calls, outs):
+        for name, (_, plain) in c.items():
+            ref = plain()
+            for o in out[name]:
+                assert all(torch.equal(x, y) for x, y in zip(o, ref)), name
+    assert not torch.equal(outs[0]["llsmu"][0][0], outs[1]["llsmu"][0][0])
+
+
+def test_side_kernels_are_one_launch_per_call(cuda):
+    """The profiler sees one kernel per wrapper call of kernels 7-10 (both
+    variants of 8) and no other kernel, memset or copy.  Once a process has
+    run many kernels, a trace can drop its first kernel records (two, on the
+    card), so each trace opens with `opened` fill kernels, which no wrapper
+    launches and which are not counted; fewer than n of them, so a fill
+    that a wrapper launched on each of its n calls would still show.  A
+    trace can drop a record but never add one, so up to three are taken
+    until one holds every launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand((16, 6912), device=cuda)
+    c = torch.randint(0, 1 << 12, (16, 6912), device=cuda, dtype=torch.int32)
+    one = c[:1, :1].clone()
+    opener = torch.empty(1, device=cuda)
+    calls = (lambda: LK.lif_update(x, x, alpha=0.9), lambda: MK.llsmu_multiply(c, c),
+             lambda: MK.llsmu_multiply(c, one), lambda: PK.po2_encode(x),
+             lambda: PK.po2_decode(c))
+    n, opened = 10, 8
+    for _ in range(3):
         torch.cuda.synchronize()
-        assert out.dtype == torch.int32 and torch.equal(out, plain)
-        assert torch.equal(out.cpu(), llsmu_multiply_ref(a.cpu(), b.cpu(), n_bits=n_bits))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(opened):
+                opener.fill_(1.5)
+            for _ in range(n):
+                for call in calls:
+                    call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [k for k in kernels if "FillFunctor" not in k]
+        if len(names) >= len(calls) * n:
+            break
+    assert len(kernels) - len(names) <= opened      # the opening fills alone
+    assert len(names) == len(calls) * n
+    assert sum("lif_update_kernel" in k for k in names) == n
+    assert sum("llsmu_multiply_kernel<false" in k for k in names) == n
+    assert sum("llsmu_multiply_kernel<true" in k for k in names) == n
+    assert sum("po2_encode_kernel" in k for k in names) == n
+    assert sum("po2_decode_kernel" in k for k in names) == n
 
 
 def test_llsmu_signed_and_fixed_point_lif_on_card(cuda):
@@ -656,14 +804,18 @@ def test_llsmu_signed_and_fixed_point_lif_on_card(cuda):
     a = torch.randint(-255, 256, (4, 1000), generator=g, dtype=torch.int32).to(cuda)
     b = torch.randint(-255, 256, (4, 1000), generator=g, dtype=torch.int32).to(cuda)
     assert torch.equal(llsmu(a, b), llsmu(a, b, use_kernel=False))
+    for scalar in (-155, 0, 155, torch.tensor([-77], device=cuda)):
+        assert torch.equal(llsmu(a, scalar), llsmu(a, scalar, use_kernel=False))
     p = TL.LIFParams()
     st = TL.lif_fixed_init((16, 6912), p, device=cuda)
     plain = st
+    MK.llsmu_multiply.launches = 0
     for _ in range(30):
         i_in = (torch.rand((16, 6912), generator=g) * 0.8).to(cuda)
         st, spk = TL.lif_step_llsmu(st, i_in, p)
         plain, plain_spk = TL.lif_step_llsmu(plain, i_in, p, use_kernel=False)
         assert torch.equal(st.v_q, plain.v_q) and torch.equal(spk, plain_spk)
+    assert MK.llsmu_multiply.launches == 30
 
 
 SIDE_EDGES = (0.0, -0.0, math.nan, -math.nan, math.inf, -math.inf, 1e-45, 1e-40, -1e-40,
@@ -712,9 +864,10 @@ def test_side_kernels_count_launches_and_reject_bad_operands(cuda):
         k.launches = 0
     LK.lif_update(x, x, alpha=0.5)
     MK.llsmu_multiply(c, c)
+    MK.llsmu_multiply(c, c[:1, :1])
     PK.po2_encode(x)
     PK.po2_decode(c)
-    assert [k.launches for k in kernels] == [1, 1, 1, 1]
+    assert [k.launches for k in kernels] == [1, 2, 1, 1]
     with pytest.raises(TypeError, match="float32"):
         LK.lif_update(x.double(), x.double(), alpha=0.5)
     with pytest.raises(ValueError, match="is on cpu"):
@@ -725,11 +878,15 @@ def test_side_kernels_count_launches_and_reject_bad_operands(cuda):
         MK.llsmu_multiply(c.long(), c.long())
     with pytest.raises(ValueError, match="n_bits"):
         MK.llsmu_multiply(c, c, n_bits=11)
+    with pytest.raises(TypeError, match="int32"):
+        MK.llsmu_multiply(c, c[:1, :1].long())
+    with pytest.raises(ValueError, match="is on cpu"):
+        MK.llsmu_multiply(c, c[:1, :1].cpu())
     with pytest.raises(ValueError, match="contiguous"):
         PK.po2_encode(x.t())
     with pytest.raises(TypeError, match="int32"):
         PK.po2_decode(x)
-    assert [k.launches for k in kernels] == [1, 1, 1, 1]
+    assert [k.launches for k in kernels] == [1, 2, 1, 1]
 
 
 def test_itp_adamw_on_card_kernels_equal_plain_quantiser(cuda):

@@ -192,6 +192,26 @@ def test_plain_version_equals_oracle_where_the_reference_agrees(n_bits):
           f"{port_apart.size} products, operands below 2^{top}")
 
 
+@pytest.mark.parametrize("n_bits", [3, 4, 5, 8])
+@pytest.mark.parametrize("top", ["2n", 30])
+def test_wrapper_takes_one_element_b(n_bits, top):
+    """The kernel wrapper with one ``b`` for every element (the kernel's
+    scalar-``b`` variant; its plain version on the CPU) equals the Pallas
+    kernel and the plain version on ``b`` broadcast in memory."""
+    top = 2 * n_bits if top == "2n" else top
+    a, b = _operands(n_bits * 10 + top + 1, 512, top)
+    for bv in (0, 1, int(b[-1]), (1 << top) - 1):
+        full = np.full_like(a, bv)
+        want = np.asarray(jax_llsmu_multiply(jnp.asarray(a), jnp.asarray(full), n_bits=n_bits,
+                                             tile=128, interpret=True))
+        np.testing.assert_array_equal(_np(llsmu_multiply_ref(_t(a), _t(full), n_bits=n_bits)),
+                                      want)
+        for one in (torch.tensor(bv, dtype=torch.int32), torch.tensor([bv], dtype=torch.int32)):
+            got = TK.llsmu_multiply(_t(a), one, n_bits=n_bits)
+            assert got.shape == a.shape and got.dtype == torch.int32
+            np.testing.assert_array_equal(_np(got), want)
+
+
 def test_kernel_constants_reject_widths_the_chain_cannot_hold():
     x = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="n_bits"):
@@ -224,6 +244,29 @@ def test_llsmu_ops_broadcasts_a_scalar_operand():
     want = JO.llsmu(jnp.asarray(a), jnp.asarray(155, jnp.int32), use_kernel=False)
     np.testing.assert_array_equal(_np(TO.llsmu(_t(a), 155)), np.asarray(want))
     np.testing.assert_array_equal(_np(TO.llsmu(_t(a), torch.tensor(155))), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_bits", [3, 4])
+@pytest.mark.parametrize("scalar", [155, -77, 0, 1, -255])
+@pytest.mark.parametrize("form", ["int", "0-d", "(1,)"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_llsmu_ops_scalar_operand_equals_materialised_and_reference(n_bits, scalar, form,
+                                                                    use_kernel):
+    """A one-element ``b`` (a Python int, a 0-d or (1,) tensor) is not
+    broadcast in memory, and the int32 product equals the one on ``b``
+    broadcast by hand and the JAX package's ``core.llsmu.llsmu_signed`` on
+    the same numpy inputs, exactly."""
+    rng = np.random.default_rng(n_bits * 1000 + scalar)
+    hi = 1 << (2 * n_bits)
+    a = rng.integers(-hi + 1, hi, size=(3, 50)).astype(np.int32)
+    want = np.asarray(JM.llsmu_signed(jnp.asarray(a), jnp.full(a.shape, scalar, jnp.int32),
+                                      n_bits=n_bits))
+    full = TO.llsmu(_t(a), _t(np.full_like(a, scalar)), n_bits=n_bits, use_kernel=use_kernel)
+    one = {"int": scalar, "0-d": torch.tensor(scalar), "(1,)": torch.tensor([scalar])}[form]
+    got = TO.llsmu(_t(a), one, n_bits=n_bits, use_kernel=use_kernel)
+    assert got.shape == a.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(_np(full), want)
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,26 @@ then timed: device ms per call from a profiler trace of 50 calls (the
 the four conv layers of ``chip_smoke.CONV_CASES``, depth 7, held against
 their plain versions within the conv tolerance and timed likewise.
 
-Then the side kernels, 7 (``lif_update``), 8 (``llsmu_multiply``), 9
-(``po2_encode``) and 10 (``po2_decode``), each held bit for bit against its
-plain version and timed beside its byte bound at the shape ``chip_smoke.py``
-times it (16 × 6,912 neurons for 7-8, qwen3-0.6b's embedding, 151,936 ×
-1,024, for 9-10) and at 2^24 elements, where bytes rather than the launch
-set the time; and a kernel with an empty body (built here from
-``NOOP_SOURCE``), launched with one block and with the grid kernel 7 takes
-at 16 × 6,912: the card's fixed cost of one kernel.  Each side case prints
-its fraction of the bound (bound / device time).
+Then the side kernels, 7 (``lif_update``), 8 (``llsmu_multiply``, on
+element pairs and, where the version has it, with one ``b`` for every
+element: ``llsmu_multiply[scalar b]``, the variant the neuron datapath
+launches), 9 (``po2_encode``) and 10 (``po2_decode``), each held bit for bit
+against its plain version and timed beside its byte bound at the shape
+``chip_smoke.py`` times it (16 × 6,912 neurons for 7-8, qwen3-0.6b's
+embedding, 151,936 × 1,024, for 9-10) and at 2^24 elements, where bytes
+rather than the launch set the time; each wrapper's host µs per call at
+16 × 6,912 elements (least of 9 windows of 1,000 calls, no sync), with
+two steps every wrapper takes, ``torch.empty_like`` of one output and
+``torch.cuda.current_stream``, timed alone; two
+PyTorch calls that move bytes as the side kernels do (``torch.add`` and
+``torch.neg`` into a preallocated output: 12 and 8 bytes an element, reads
+and writes 2:1 and 1:1), at both sizes, as the yardstick of the rate an
+elementwise launch reaches on the card; and a kernel with an empty body
+(built here from ``NOOP_SOURCE``), launched with one block and with the
+grids kernel 7 takes at 16 × 6,912 (four neurons a thread, and one): the
+card's fixed cost of one kernel.  Each side case prints its fraction of the
+bound (bound / device time).  ``--side`` times the side kernels and the
+empty kernel alone.
 
 Last it ranks the kernels as rule 2 of the port reads them: launches ×
 (device − bound), summed over the shapes, with each kernel's launches per
@@ -76,6 +87,9 @@ LAUNCHES = {
     "counter_conv_delta[linear]": {"CSNN conv1": 30, "CSNN conv2": 30},
     "counter_conv_delta[imstdp]": {"DCSNN conv1": 30, "DCSNN conv2": 30},
     "lif_update": {"16x6912": 30},
+    # the neuron datapath launches the scalar-b variant where the version
+    # has one, else the element-pair kernel
+    "llsmu_multiply[scalar b]": {"16x6912": 30},
     "llsmu_multiply": {"16x6912": 30},
     "po2_encode": {"embedding": 3},
     "po2_decode": {"embedding": 3},
@@ -118,8 +132,9 @@ def _noop_library():
 
 def _side_cases(device):
     """Kernels 7-10 at the smoke's shapes and at SIDE_LARGE elements: name →
-    [(case, shape text, kernel call, plain call, elements)], each kernel's
-    outputs first held bit for bit against its plain version's."""
+    [(case, shape text, kernel call, elements)], each kernel's outputs first
+    held bit for bit against its plain version's; a version whose kernel 8
+    refuses one ``b`` has no scalar-b cases."""
     import torch
 
     from repro_torch.core.lif import LIFParams
@@ -141,15 +156,22 @@ def _side_cases(device):
         i_in = torch.rand((n,), generator=gen, device=device) * 0.8
         a = torch.randint(0, 1 << 12, (n,), generator=gen, device=device, dtype=torch.int32)
         b = torch.full_like(a, round(p.alpha * (1 << S.LIF_FRAC_BITS)))
+        one = b[:1].clone()
         x = torch.randn(po2_shape, generator=gen, device=device) * 0.02
         codes = PK.po2_encode(x)
         what = "16x6912" if case == "smoke" else "2^24"
         po2_what = "embedding" if case == "smoke" else "2^24"
+        scalar_b = []
+        if _takes_one_b(MK.llsmu_multiply, a, one):
+            scalar_b.append(("llsmu_multiply[scalar b]",
+                             lambda a=a, o=one: (MK.llsmu_multiply(a, o),),
+                             lambda a=a, b=b: (llsmu_multiply_ref(a, b),), n, what))
         for name, kern, plain, count, shape in (
                 ("lif_update", lambda v=v, i=i_in: LK.lif_update(v, i, **kw),
                  lambda v=v, i=i_in: lif_update_ref(v, i, **kw), n, what),
                 ("llsmu_multiply", lambda a=a, b=b: (MK.llsmu_multiply(a, b),),
                  lambda a=a, b=b: (llsmu_multiply_ref(a, b),), n, what),
+                *scalar_b,
                 ("po2_encode", lambda x=x: (PK.po2_encode(x),),
                  lambda x=x: (PR.po2_encode_ref(x),), x.numel(), po2_what),
                 ("po2_decode", lambda c=codes: (PK.po2_decode(c),),
@@ -162,11 +184,50 @@ def _side_cases(device):
     return cases
 
 
+def _takes_one_b(llsmu_multiply, a, one) -> bool:
+    """Whether this version's kernel 8 wrapper takes one ``b`` for every
+    element (the scalar-b variant); a version without it refuses the shape."""
+    try:
+        llsmu_multiply(a, one)
+    except ValueError:
+        return False
+    return True
+
+
+def _host_cases(device):
+    """Each side wrapper at 16 × 6,912 elements, and two steps each takes:
+    name → call."""
+    import torch
+
+    from repro_torch.kernels.lif import kernel as LK
+    from repro_torch.kernels.llsmu import kernel as MK
+    from repro_torch.kernels.po2_quant import kernel as PK
+
+    n = S.LIF_POPULATION[0] * S.LIF_POPULATION[1]
+    gen = torch.Generator(device=device).manual_seed(8)
+    v = torch.rand((n,), generator=gen, device=device)
+    a = torch.randint(0, 1 << 12, (n,), generator=gen, device=device, dtype=torch.int32)
+    one = a[:1].clone()
+    b = one.expand(n).contiguous()
+    codes = PK.po2_encode(v)
+    calls = {"lif_update": lambda: LK.lif_update(v, v, alpha=0.9),
+             "llsmu_multiply": lambda: MK.llsmu_multiply(a, b),
+             "po2_encode": lambda: PK.po2_encode(v),
+             "po2_decode": lambda: PK.po2_decode(codes),
+             "torch.empty_like": lambda: torch.empty_like(v),
+             "torch.cuda.current_stream": lambda: torch.cuda.current_stream(device).cuda_stream}
+    if _takes_one_b(MK.llsmu_multiply, a, one):
+        calls["llsmu_multiply[scalar b]"] = lambda: MK.llsmu_multiply(a, one)
+    return calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with every line")
+    ap.add_argument("--side", action="store_true",
+                    help="time the side kernels (7-10) and the empty kernel alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -194,7 +255,7 @@ def main() -> int:
     po2 = po2_vectors(p, DEPTH, device=device)
     lut = counter_lut(p, DEPTH, device)
     results = []
-    for case, (lanes, n_pre, n_post) in SHAPES.items():
+    for case, (lanes, n_pre, n_post) in ({} if args.side else SHAPES).items():
         gen = torch.Generator().manual_seed(lanes * n_pre + n_post)
         w, pre_s, post_s, pre_wd, post_wd, pre_b, post_b = S._inputs(
             lanes, n_pre, n_post, DEPTH, gen, device)
@@ -244,7 +305,7 @@ def main() -> int:
     from repro_torch.kernels.itp_stdp_conv import kernel as CK
     from repro_torch.kernels.itp_stdp_conv import ref as CR
 
-    for case, (m, k, c) in S.CONV_CASES.items():
+    for case, (m, k, c) in ({} if args.side else S.CONV_CASES).items():
         gen = torch.Generator().manual_seed(m + k + c)
         pre = (torch.rand((m, k), generator=gen) < 0.3).float().to(device)
         post = (torch.rand((m, c), generator=gen) < 0.25).float().to(device)
@@ -288,7 +349,7 @@ def main() -> int:
         for case, shape, kern, count in cases:
             bound_ms, bound_by = S._side_bound(name, count)
             ms = S._time_ms(kern)
-            device_ms = S._device_ms(kern, f"{name}_kernel")
+            device_ms = S._device_ms(kern, name.split("[")[0] + "_kernel")
             frac = "not measured" if device_ms is None else f"{bound_ms / device_ms:.3f}"
             dev = "not measured" if device_ms is None else f"{device_ms:.5f}"
             print(f"[{label}] {name} {case} {shape} ({count} elements): device {dev} ms, "
@@ -296,11 +357,32 @@ def main() -> int:
                   f"the bound {frac}", flush=True)
             results.append(dict(name=name, case=shape, shape=[count], device_ms=device_ms,
                                 ms=ms, bound_ms=bound_ms))
+    pop = S.LIF_POPULATION[0] * S.LIF_POPULATION[1]
+    for case, n in (("16x6912", pop), ("2^24", SIDE_LARGE)):
+        x, y = torch.rand((2, n), device=device)
+        z = torch.empty_like(x)
+        for name, call, nbytes in (
+                ("torch.add", lambda x=x, y=y, z=z: torch.add(x, y, out=z), 12),
+                ("torch.neg", lambda x=x, z=z: torch.neg(x, out=z), 8)):
+            bound_ms = nbytes * n / S.HBM_BYTES_PER_S * 1e3
+            device_ms = S._device_ms(call, "elementwise_kernel")
+            frac = "not measured" if device_ms is None else f"{bound_ms / device_ms:.3f}"
+            dev = "not measured" if device_ms is None else f"{device_ms:.5f}"
+            print(f"[{label}] yardstick {name} {case} ({n} elements, {nbytes} bytes each): "
+                  f"device {dev} ms, bound {bound_ms:.5f} ms (bytes), fraction of the bound "
+                  f"{frac}", flush=True)
+            results.append(dict(name=name, case=case, shape=[n], device_ms=device_ms,
+                                ms=None, bound_ms=bound_ms))
+    for name, call in _host_cases(device).items():
+        us = S._host_us(call)
+        print(f"[{label}] host {name} at {S.LIF_POPULATION[0]}x{S.LIF_POPULATION[1]}: "
+              f"{us:.3f} us per call (least of 9 windows of 1,000 calls, no sync)",
+              flush=True)
+        results.append(dict(name=f"host {name}", case="16x6912", shape=[], device_ms=None,
+                            ms=None, bound_ms=None, host_us=us))
     noop = _noop_library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    lif_blocks = min((S.LIF_POPULATION[0] * S.LIF_POPULATION[1] + 255) // 256,
-                     16 * torch.cuda.get_device_properties(device).multi_processor_count)
-    for blocks in (1, lif_blocks):
+    for blocks in (1, (pop // 4 + 255) // 256, (pop + 255) // 256):
         call = lambda blocks=blocks: noop(blocks, 256, device.index or 0, stream)  # noqa: E731
         if call() != 0:
             raise SystemExit("noop kernel: launch failed")
@@ -317,6 +399,8 @@ def main() -> int:
         if n and c["device_ms"] is not None:
             ranking.setdefault(c["name"], 0.0)
             ranking[c["name"]] += n * (c["device_ms"] - c["bound_ms"])
+    if "llsmu_multiply[scalar b]" in ranking:   # the path's variant of kernel 8
+        ranking.pop("llsmu_multiply", None)
     for name, lost in sorted(ranking.items(), key=lambda kv: -kv[1]):
         print(f"[{label}] rank: {name}: {sum(LAUNCHES[name].values())} launches, "
               f"launches x (device - bound) = {lost:.3f} ms per chip_smoke run", flush=True)

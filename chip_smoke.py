@@ -107,11 +107,36 @@ printed on lines of its own:
              ``mstdp``/``fused`` (kernel 4 on magnitude planes) and on
              ``itp``/``sparse`` (kernel 4 on the gathered rows), each held
              against ``reference``;
-11. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
-   kernels 7-10; a dense kernel's launches summed over serving and the fc
-   layers of the training runs, its times at the shape where most of them
-   fall; the matrix phase's launches added), the ``nvidia-smi``
-   name/power-limit line, and the final ``{"ok": true, ...}`` line.
+11. persist — session checkpointing and the restart runner: the slice's
+             serving load with ``itp``, ``exact`` and ``mstdp`` on ``fused``,
+             16 requests, a checkpoint, a restore into a new ``Server``, the
+             other 16: states and post rasters bit-equal to an uninterrupted
+             server, LRU order kept, the save and restore wall ms and the
+             bytes on disk per session, and a leaf corrupted on purpose
+             refused; then ``TrainingRunner`` over the engine population
+             (8 × 256 × 256, ``itp``/``fused``, 100 steps, a checkpoint every
+             25, a failure injected at step 60): bit-equal to the
+             uninterrupted run, 110 kernel-1 launches (steps 50-59 replayed);
+12. engine  — ``launch.train --engine`` at its defaults (8 replicas × 256 ×
+             256 × 100 steps at input rate 0.3; the launcher's parser and
+             ``engine_training``) with ``itp``/``fused``, ``exact``/``fused``
+             and ``itp``/``sparse``: SOP/s, the warm-up seconds, launches = 2 ×
+             steps on fused (warm-up and timed run), each against the same run
+             on ``reference`` on the card (``itp``/``fused`` bitwise, the
+             others spikes exact and w within rtol=1e-5, atol=1e-6);
+13. sharded — the weight-sharded engine on a 1 × 1 NCCL grid in this
+             process (``tcp://127.0.0.1`` on a free port; the group destroyed
+             at the end): 784 × 100 over 64 steps at the sparse engine's
+             inputs for ``itp``, ``exact`` and ``linear`` on ``fused`` and
+             ``itp`` on ``sparse``, each == the unsharded ``run_engine``
+             (spikes, w and v bitwise), one kernel launch a step on fused, the
+             sharded step's wall ms beside the unsharded one's;
+14. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+   kernels 7-10; a dense kernel's launches summed over serving, the fc
+   layers of the training runs and phases 11-13, its times at the shape
+   where most of them fall; the matrix phase's launches added), the
+   ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
+   line.
 
 Any mismatch or exception ends the script with a non-zero exit.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -136,7 +161,8 @@ SERVE_LOAD = dict(sessions=8, requests=32)
 SERVE_SCFG = dict(max_batch=8, t_steps=16, theta_plus=0.05)
 KERNEL_CASES = [  # (lanes, n_pre, n_post, depth)
     (8, 784, 100, 7), (8, 784, 100, 1), (8, 784, 100, 8), (1, 200, 72, 7),
-    (16, 784, 100, 7), (16, 600, 128, 7), (16, 480, 64, 7)]
+    (16, 784, 100, 7), (16, 600, 128, 7), (16, 480, 64, 7), (8, 256, 256, 7),
+    (1, 784, 100, 7)]
 COUNTER_WINDOWS = ("exact", "linear", "imstdp")
 REPLACES = {
     "itp_stdp_update_packed": "src/repro/kernels/itp_stdp/kernel.py:177",
@@ -168,10 +194,12 @@ CONV_CASES = {"DCSNN conv1": (9216, 25, 12), "DCSNN conv2": (1600, 108, 24),
               "CSNN conv1": (4048, 14, 8), "CSNN conv2": (976, 40, 16)}
 CONV_DEPTH = 7
 CONV_TOL = dict(atol=1e-4, rtol=1e-5)   # the reference's kernel-vs-oracle tolerance
-# (lanes, n_pre, n_post) of the dense counter update: serving's 8 sessions and
-# the paper nets' fc layers at batch 16 (the batch is the lane axis)
+# (lanes, n_pre, n_post) of the dense updates: serving's 8 sessions, the paper
+# nets' fc layers at batch 16 (the batch is the lane axis), the engine
+# launcher's population and the sharded engine's 1 x 1 tile
 COUNTER_FC_CASES = {"serving": (8, 784, 100), "2layer-snn fc": (16, 784, 100),
-                    "DCSNN fc": (16, 600, 128), "CSNN fc": (16, 480, 64)}
+                    "DCSNN fc": (16, 600, 128), "CSNN fc": (16, 480, 64),
+                    "engine": (8, 256, 256), "sharded": (1, 784, 100)}
 COUNTER_DEPTH = 7
 COUNTER_DEEP = 255                      # the uint8 counter word's largest depth
 WINDOW_TOL = dict(rtol=1e-6, atol=1e-6)  # the reference's tolerance for the exp window
@@ -202,6 +230,14 @@ SPARSE_STEPS = 64
 SPARSE_RATE = 0.02                      # input spike probability per step
 SPARSE_W = (0.0, 0.04)                  # init weight range: the posts fire at ~10 %
 SPARSE_CAP = 8                          # the capped run's max_events
+# the persist, engine and sharded phases: launch.train --engine's defaults (the
+# reference's), the restart runner's checkpoint interval and injected failure,
+# and the sharded engine's steps at the sparse engine's width and inputs
+ENGINE_DEFAULTS = dict(engine_pre=256, engine_post=256, replicas=8, engine_rate=0.3,
+                       steps=100)
+RUNNER_CKPT_EVERY = 25
+RUNNER_FAIL_AT = 60
+SHARDED_STEPS = 64
 # the side numerics: the DCSNN conv1 population (24×24×12 at batch 16)
 LIF_POPULATION = (16, 24 * 24 * 12)
 LIF_STEPS = 30
@@ -1582,14 +1618,368 @@ def phase_sparse_mstdp(device) -> dict:
     return out
 
 
-def _dense_launches(serve: dict, train: dict, kernels: dict) -> dict:
-    """A dense kernel launches in serving and once per step in every fc
-    layer of the training runs (the batch as lanes): its launches by shape,
+def _dir_bytes(path: Path) -> tuple[int, int]:
+    """(bytes of the ``.npy`` files, bytes of every file) under ``path``."""
+    files = [f for f in path.iterdir() if f.is_file()]
+    return (sum(f.stat().st_size for f in files if f.suffix == ".npy"),
+            sum(f.stat().st_size for f in files))
+
+
+def _engine_counters() -> dict:
+    """The dense kernels the engine paths launch, by the kernels line's names
+    (the counter kernel's count goes to the run's window)."""
+    from repro_torch.kernels.itp_counter import kernel as NK
+    from repro_torch.kernels.itp_stdp import kernel as K
+
+    return {"itp_stdp_update_packed": K.itp_stdp_update_packed,
+            "itp_stdp_update": K.itp_stdp_update,
+            "counter_stdp_update": NK.counter_stdp_update}
+
+
+def _launch_name(name: str, rule: str) -> str:
+    return f"counter_stdp_update[{rule}]" if name == "counter_stdp_update" else name
+
+
+def _persist_serving(rule: str, scratch: Path, device) -> dict:
+    """The slice load on fused, served in two halves around a checkpoint and
+    a restore into a new Server, against one uninterrupted server."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.launch.serve import synthetic_load
+    from repro_torch.serve import ServeConfig, Server
+
+    cfg = EngineConfig(**dict(SERVE_CFG, rule=rule), backend="fused")
+    scfg = ServeConfig(**SERVE_SCFG)
+    load = synthetic_load(torch.Generator().manual_seed(1), t_steps=scfg.t_steps,
+                          n_pre=cfg.n_pre, rate=0.3, **SERVE_LOAD)
+    half = len(load) // 2
+    whole, whole_results, _ = _serve(cfg, scfg, load, device, threaded=False)
+    ckpt_dir = scratch / rule
+    counters = _engine_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    first, results, _ = _serve(cfg, scfg, load[:half], device, threaded=False)
+    t0 = time.perf_counter()
+    path = Path(first.checkpoint(str(ckpt_dir)))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    second = Server(cfg, scfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second.restore(str(ckpt_dir))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    tickets = [second.submit(r) for r in load[half:]]
+    second.drain()
+    torch.cuda.synchronize()
+    launches = {_launch_name(k, rule): fn.launches for k, fn in counters.items()
+                if fn.launches}
+    batches = first.batches + second.batches
+    kernel = {"itp": "itp_stdp_update_packed", "exact": "counter_stdp_update[exact]",
+              "mstdp": "itp_stdp_update"}[rule]
+    if launches != {kernel: batches * scfg.t_steps}:
+        raise SystemExit(f"persist {rule}: launches {launches}, expected "
+                         f"{ {kernel: batches * scfg.t_steps} }")
+    results += [second.poll(t) for t in tickets]
+    if not all(r is not None and np.array_equal(r.post, w.post)
+               for r, w in zip(results, whole_results)):
+        raise SystemExit(f"persist {rule}: post rasters differ from the uninterrupted run")
+    if second.store.session_ids != whole.store.session_ids:
+        raise SystemExit(f"persist {rule}: LRU order differs")
+    _assert_states(_states(second), _states(whole), exact=True,
+                   what=f"persist {rule} restored vs uninterrupted")
+    npy, total = _dir_bytes(path)
+    sessions = len(second.store)
+    resident = second.store.resident_bytes_per_session()
+
+    # a leaf corrupted on purpose: the restore must refuse it
+    victim = path / "user0__.w.npy"
+    arr = np.load(victim)
+    arr[0, 0] += 1.0
+    np.save(victim, arr)
+    try:
+        Server(cfg, scfg, seed=0, device=device).restore(str(ckpt_dir))
+    except IOError as e:
+        refused = str(e)
+    else:
+        raise SystemExit(f"persist {rule}: a corrupted leaf was restored")
+    if "checksum" not in refused:
+        raise SystemExit(f"persist {rule}: corrupted leaf refused for another reason: {refused}")
+    _phase("persist", f"serving {rule}/fused: {half} + {len(load) - half} requests around a "
+           f"checkpoint and a restore into a new Server == uninterrupted (rasters, words, "
+           f"w, v, theta, t bitwise; LRU order kept); save {save_ms:.3f} ms, restore "
+           f"{restore_ms:.3f} ms wall ({sessions} sessions); on disk {npy / sessions:.1f} "
+           f"B/session of .npy ({total / sessions:.1f} with the manifest; resident "
+           f"{resident} B); corrupted leaf refused ({refused}); launches {launches}")
+    return {"save_ms": save_ms, "restore_ms": restore_ms, "npy_bytes_per_session":
+            npy / sessions, "bytes_per_session": total / sessions, "launches": launches}
+
+
+def _persist_runner(scratch: Path, device) -> dict:
+    """TrainingRunner over the engine population: a failure at step
+    RUNNER_FAIL_AT, restore and replay, against an uninterrupted run."""
+    import torch
+
+    from repro_torch.core.engine import EngineConfig, engine_step, init_engine_population
+    from repro_torch.distributed import FailureInjector, RunnerConfig, TrainingRunner
+
+    cfg = EngineConfig(n_pre=ENGINE_DEFAULTS["engine_pre"],
+                       n_post=ENGINE_DEFAULTS["engine_post"], backend="fused")
+    replicas, steps = ENGINE_DEFAULTS["replicas"], ENGINE_DEFAULTS["steps"]
+
+    def batch_fn(step):
+        g = torch.Generator().manual_seed(10_000 + step)
+        return (torch.rand((replicas, cfg.n_pre), generator=g)
+                < ENGINE_DEFAULTS["engine_rate"]).float().to(device)
+
+    def step_fn(state, x):
+        state, post = engine_step(state, x, cfg)
+        return state, {"post_rate": post.float().mean()}
+
+    kernel = _engine_counters()["itp_stdp_update_packed"]
+    runs = {}
+    for name, injector in (("uninterrupted", None),
+                           ("failure", FailureInjector({RUNNER_FAIL_AT}))):
+        state = init_engine_population(cfg, replicas, device=device,
+                                       generator=torch.Generator().manual_seed(0))
+        runner = TrainingRunner(RunnerConfig(ckpt_dir=str(scratch / f"runner_{name}"),
+                                             ckpt_every=RUNNER_CKPT_EVERY), step_fn, batch_fn)
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        final = runner.run(state, steps, injector)
+        torch.cuda.synchronize()
+        runs[name] = (final, kernel.launches, time.perf_counter() - t0, runner)
+    (a, na, sa, _), (b, nb, sb, rb) = runs["uninterrupted"], runs["failure"]
+    resume = RUNNER_FAIL_AT // RUNNER_CKPT_EVERY * RUNNER_CKPT_EVERY
+    want = steps + RUNNER_FAIL_AT - resume
+    same = all(torch.equal(x, y) for x, y in zip(
+        (a.w, a.pre_hist.planes, a.pre_hist.head, a.post_hist.planes, a.post_hist.head,
+         a.neurons.v),
+        (b.w, b.pre_hist.planes, b.pre_hist.head, b.post_hist.planes, b.post_hist.head,
+         b.neurons.v)))
+    restart = [e for e in rb.log if e.get("event") == "restart"]
+    _phase("persist", f"TrainingRunner {replicas}x{cfg.n_pre}x{cfg.n_post} itp/fused, "
+           f"{steps} steps, ckpt_every {RUNNER_CKPT_EVERY}, failure at step "
+           f"{RUNNER_FAIL_AT}: restarts {rb.restarts} ({restart}), kernel-1 launches {nb} "
+           f"(uninterrupted {na}), final state == uninterrupted bitwise {same}; wall "
+           f"{sb * 1e3:.1f} ms with the failure, {sa * 1e3:.1f} ms without; stragglers "
+           f"{len(rb.watchdog.stragglers)}")
+    if not (same and rb.restarts == 1 and na == steps and nb == want
+            and restart[0]["resume_step"] == resume):
+        raise SystemExit(f"runner restart: equal {same}, restarts {rb.restarts}, launches "
+                         f"{nb} (want {want}), log {restart}")
+    return {"launches": nb, "seconds": sb, "uninterrupted_seconds": sa}
+
+
+def phase_persist(device) -> dict:
+    """Session checkpointing and the restart runner: the slice load with
+    itp, exact and mstdp on fused around a checkpoint and a restore (each ==
+    the uninterrupted server bitwise, a corrupted leaf refused); then the
+    engine population through TrainingRunner with a failure injected.  The
+    checkpoints go under the checkout's ``build/`` and are removed."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    try:
+        serving = {rule: _persist_serving(rule, scratch, device)
+                   for rule in ("itp", "exact", "mstdp")}
+        runner = _persist_runner(scratch, device)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return {"serving": serving, "runner": runner}
+
+
+def phase_engine(device) -> dict:
+    """``launch.train --engine`` at its defaults (the launcher's own parser and
+    training function) with itp/fused, exact/fused and itp/sparse; each
+    against the same run on reference on the card (itp/fused bitwise)."""
+    import torch
+
+    from repro_torch.launch.train import build_parser, engine_training
+
+    counters = _engine_counters()
+    out = {}
+    for rule, backend in (("itp", "fused"), ("exact", "fused"), ("itp", "sparse")):
+        args = build_parser().parse_args(["--engine", "--rule", rule, "--backend", backend,
+                                          "--device", str(device)])
+        for fn in counters.values():
+            fn.launches = 0
+        summary, states, post = engine_training(args)
+        launches = {_launch_name(k, rule): fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        steps = summary["steps"]
+        shape = dict(engine_pre=summary["n_pre"], engine_post=summary["n_post"],
+                     replicas=summary["replicas"], engine_rate=args.engine_rate, steps=steps)
+        if shape != ENGINE_DEFAULTS:
+            raise SystemExit(f"engine: the launcher's defaults {shape} are not "
+                             f"{ENGINE_DEFAULTS}")
+        want = ({} if backend == "sparse" else
+                {_launch_name("counter_stdp_update" if rule == "exact"
+                              else "itp_stdp_update_packed", rule): 2 * steps})
+        if launches != want:
+            raise SystemExit(f"engine {rule}/{backend}: launches {launches}, expected {want}")
+        ref_args = build_parser().parse_args(["--engine", "--rule", rule, "--backend",
+                                              "reference", "--device", str(device)])
+        ref_summary, ref_states, ref_post = engine_training(ref_args)
+        err = (states.w - ref_states.w).abs().max().item()
+        bitwise = torch.equal(states.w, ref_states.w) and torch.equal(post, ref_post)
+        ok = (torch.equal(post, ref_post) and torch.allclose(states.w, ref_states.w,
+                                                             **MATRIX_TOL)
+              and (bitwise or (rule, backend) != ("itp", "fused"))
+              and bool(torch.isfinite(states.w).all()))
+        _phase("engine", f"launch.train --engine --rule {rule} --backend {backend} "
+               f"({summary['replicas']} x {summary['n_pre']}x{summary['n_post']} x {steps} "
+               f"steps at rate {args.engine_rate}): {summary['sops_per_s']:.4e} SOP/s, run "
+               f"{summary['run_seconds']} s, warm-up {summary['compile_seconds']} s, mean "
+               f"post rate {summary['mean_post_rate']:.4f}; reference {ref_summary['sops_per_s']:.4e} "
+               f"SOP/s; vs reference max|err| {err:.3g} (bitwise {bitwise}); launches "
+               f"{launches} -> {'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"engine {rule}/{backend} differs from reference")
+        out[f"{rule}/{backend}"] = dict(summary, launches=launches)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(device) -> dict:
+    """The weight-sharded engine on a 1 x 1 NCCL grid in this process: at the
+    2layer-snn fc width over SHARDED_STEPS steps for itp, exact and linear on
+    fused and itp on sparse, each == the unsharded run_engine (spikes and
+    weights bitwise), one kernel launch a step on fused; the sharded step's
+    wall ms beside the unsharded one's.  The group is destroyed at the end."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import EngineConfig, init_engine, run_engine
+    from repro_torch.core.engine_sharded import make_sharded_engine_step, shard_engine_state
+    from repro_torch.distributed.sharding import init_process_group, make_grid
+
+    port = _free_port()
+    os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"] = "127.0.0.1", str(port)
+    init_process_group(device, rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{port}")
+    out = {}
+    try:
+        grid = make_grid(1, 1, device=device)
+        gen = torch.Generator().manual_seed(31)
+        lo, hi = SPARSE_W
+        w0 = lo + (hi - lo) * torch.rand((SPARSE_ENGINE["n_pre"], SPARSE_ENGINE["n_post"]),
+                                         generator=gen)
+        raster = (torch.rand((SHARDED_STEPS, SPARSE_ENGINE["n_pre"]), generator=gen)
+                  < SPARSE_RATE).float().to(device)
+        counters = _engine_counters()
+        for rule, backend in (("itp", "fused"), ("exact", "fused"), ("linear", "fused"),
+                              ("itp", "sparse")):
+            cfg = EngineConfig(**SPARSE_ENGINE, rule=rule, backend=backend)
+            step = make_sharded_engine_step(cfg, grid)
+
+            def sharded():
+                st = shard_engine_state(init_engine(cfg, w_init=w0, device=device), grid)
+                posts = []
+                for x in raster:
+                    st, post = step(st, x)
+                    posts.append(post)
+                return st, torch.stack(posts)
+
+            def unsharded():
+                return run_engine(init_engine(cfg, w_init=w0, device=device), raster, cfg)
+
+            for fn in counters.values():
+                fn.launches = 0
+            st, post = sharded()
+            torch.cuda.synchronize()
+            launches = {_launch_name(k, rule): fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            want = ({} if backend == "sparse" else
+                    {_launch_name("counter_stdp_update" if rule != "itp"
+                                  else "itp_stdp_update_packed", rule): SHARDED_STEPS})
+            ref_st, ref_post = unsharded()
+            ok = (torch.equal(post, ref_post) and torch.equal(st.w, ref_st.w)
+                  and torch.equal(st.neurons.v, ref_st.neurons.v) and launches == want)
+            times = {"sharded": [], "unsharded": []}
+            for order in ((sharded, unsharded), (unsharded, sharded)):
+                for fn in order:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[fn.__name__].append((time.perf_counter() - t0) * 1e3 / SHARDED_STEPS)
+            ms = {k: min(v) for k, v in times.items()}
+            rate = post.float().mean().item()
+            _phase("sharded", f"{rule}/{backend} 784x100 on a 1x1 {dist.get_backend()} grid, "
+                   f"{SHARDED_STEPS} steps (post rate {rate:.4f}): == run_engine (spikes, w, "
+                   f"v bitwise) {ok}; launches {launches}; step wall "
+                   f"{ms['sharded']:.4f} ms sharded vs {ms['unsharded']:.4f} ms unsharded "
+                   f"(the least of two runs each)")
+            if not ok:
+                raise SystemExit(f"sharded {rule}/{backend}: differs from run_engine or "
+                                 f"launches {launches} != {want}")
+            if not 0 < rate < 1:
+                raise SystemExit(f"sharded {rule}/{backend}: post rate {rate}")
+            out[f"{rule}/{backend}"] = {"launches": launches, "sharded_ms": ms["sharded"],
+                                        "unsharded_ms": ms["unsharded"]}
+            if (rule, backend) == ("itp", "fused"):
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sharded()
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                _report_profile(prof, seconds, f"one sharded itp/fused run of {SHARDED_STEPS} "
+                                "steps")
+
+        # the step's two collectives alone, at its sizes: the current's
+        # all_reduce over the column and the spikes' and membrane's all_gather
+        # over the row
+        current = torch.zeros(SPARSE_ENGINE["n_post"], device=device)
+        local = torch.zeros((2, SPARSE_ENGINE["n_post"]), device=device)
+        parts = [torch.empty_like(local) for _ in range(grid.model)]
+
+        def collectives():
+            for _ in range(SHARDED_STEPS):
+                dist.all_reduce(current, group=grid.col_group)
+                dist.all_gather(parts, local, group=grid.row_group)
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collectives()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / SHARDED_STEPS)
+        out["collectives_ms"] = min(walls)
+        _phase("sharded", f"the two collectives of a step alone: {out['collectives_ms']:.4f} "
+               f"ms wall a step (the least of three runs of {SHARDED_STEPS})")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> dict:
+    """A dense kernel launches in serving, once per step in every fc layer of
+    the training runs (the batch as lanes), and in the engine paths
+    (``engine``: launches by kernel and shape): its launches by shape,
     summed.  Each dense kernel's report takes its times at the shape where
     most of its launches fall.  Returns the summed launches."""
     fc_case = {"6layer-dcsnn": "DCSNN fc", "5layer-csnn": "CSNN fc",
                "2layer-snn": "2layer-snn fc"}
     dense = {name: {"serving": n} for name, n in serve["launches"].items() if n}
+    for name, by_shape in engine.items():
+        for shape, n in by_shape.items():
+            dense.setdefault(name, {})[shape] = dense.get(name, {}).get(shape, 0) + n
     for run, r in train.items():
         net, _, rule = run.partition(" ")
         counts = {"itp_stdp_update_packed": r["launches"].get("itp_stdp_update_packed", 0),
@@ -1653,12 +2043,30 @@ def main() -> int:
     serve["launches"]["itp_stdp_update"] += (
         sparse_mstdp["serving"]["mstdp/fused"]["launches"]["itp_stdp_update"])
     train.update(sparse_mstdp["train"])
+    persist = phase_persist(device)
+    engine = phase_engine(device)
+    sharded = phase_sharded(device)
+    # the persist phase's serving loads launch at serving's shape; the restart
+    # runner and the engine launcher at the population's, the sharded engine
+    # at its tile's
+    engine_launches = {}
+    for shape, runs in (("serving", persist["serving"].values()),
+                        ("engine", [persist["runner"]] + list(engine.values())),
+                        ("sharded", [r for k, r in sharded.items()
+                                     if k != "collectives_ms"])):
+        for r in runs:
+            launched = r["launches"]
+            if isinstance(launched, int):            # the runner: kernel 1 only
+                launched = {"itp_stdp_update_packed": launched}
+            for name, n in launched.items():
+                by_shape = engine_launches.setdefault(name, {})
+                by_shape[shape] = by_shape.get(shape, 0) + n
     dcsnn = train["6layer-dcsnn"]
     # launches: each kernel's count from the runs of its main path (the conv
     # kernels DCSNN training, kernel 4 its unpacked run and the mstdp and
     # sparse DCSNN runs; the counter conv windows the exact DCSNN, linear
     # CSNN and imstdp DCSNN runs), then the matrix phase's cells
-    launches = _dense_launches(serve, train, kernels)
+    launches = _dense_launches(serve, train, kernels, engine_launches)
     launches.update(itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
                     itp_stdp_conv_delta=dcsnn["unpacked_launches"] + sum(
                         train[run]["launches"]["itp_stdp_conv_delta"]
@@ -1679,6 +2087,16 @@ def main() -> int:
         raise SystemExit(f"a kernel of the path was never launched: {launches}")
     for net, r in train.items():
         _phase("train", f"{net}: {r['sim_steps_per_s']:.1f} sim-steps/s")
+    for rule, r in persist["serving"].items():
+        _phase("persist", f"{rule}: save {r['save_ms']:.3f} ms, restore {r['restore_ms']:.3f} "
+               f"ms, {r['bytes_per_session']:.1f} B/session on disk")
+    for run, r in engine.items():
+        _phase("engine", f"{run}: {r['sops_per_s']:.4e} SOP/s, warm-up "
+               f"{r['compile_seconds']} s")
+    for run, r in sharded.items():
+        if run != "collectives_ms":
+            _phase("sharded", f"{run}: step {r['sharded_ms']:.4f} ms sharded, "
+                   f"{r['unsharded_ms']:.4f} ms unsharded")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -4,8 +4,11 @@ Brings up the online-plasticity :class:`repro_torch.serve.Server` on
 ``--device`` (default ``cuda``), submits a synthetic per-session spike-raster
 load (each session is one user's private network, learning continually via
 the selected rule × backend), and reports the drain throughput and the
-session-memory numbers: bytes per session and sessions per GiB.  Session
-checkpointing (``--ckpt-dir`` in the reference) comes with a later slice.
+session-memory numbers: bytes per session and sessions per GiB.
+
+``--ckpt-dir`` restores the latest checkpoint of the session store on start
+and saves the store on exit, so the learned per-user state survives a
+restart (the reference's format: either package's launcher restores it).
 """
 from __future__ import annotations
 
@@ -41,12 +44,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="total requests submitted")
     ap.add_argument("--rate", type=float, default=0.3,
                     help="per-step input spike probability of the load")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the latest checkpoint on start, save on exit")
     args = ap.parse_args(argv)
 
     cfg = engine_config_from_args(args)
     scfg = serve_config_from_args(args)
     server = Server(cfg, scfg, seed=args.seed, device=args.device)
     dev = server.store.device
+    if args.ckpt_dir:
+        try:
+            server.restore(args.ckpt_dir)
+            print(f"restored {len(server.store)} sessions from {args.ckpt_dir}")
+        except FileNotFoundError:
+            print(f"no checkpoint under {args.ckpt_dir}; starting fresh")
     reqs = synthetic_load(torch.Generator().manual_seed(args.seed + 1),
                           sessions=args.sessions, requests=args.requests,
                           t_steps=scfg.t_steps, n_pre=cfg.n_pre, rate=args.rate)
@@ -74,6 +85,9 @@ def main(argv: list[str] | None = None) -> None:
           f"({store.sessions_per_gb():.0f} sessions/GiB); resident "
           f"{store.resident_bytes_per_session()} B/session "
           f"({store.sessions_per_gb(resident=True):.0f} sessions/GiB)")
+    if args.ckpt_dir:
+        path = server.checkpoint(args.ckpt_dir)
+        print(f"  checkpointed {len(store)} sessions -> {path}")
 
 
 if __name__ == "__main__":

@@ -1,20 +1,32 @@
-"""Training launcher: ``python -m repro_torch.launch.train --snn <net> [...]``.
+"""Training launcher: ``python -m repro_torch.launch.train --snn <net> | --engine [...]``.
 
-Trains one of the paper's networks (2-layer SNN, 6-layer DCSNN, 5-layer
+``--snn <net>`` trains one of the paper's networks (2-layer SNN, 6-layer DCSNN, 5-layer
 CSNN) with unsupervised STDP on ``--device`` (default ``cuda``), through the
 shared train-to-accuracy loop of ``repro_torch.train.stdp_trainer`` and the
 shared flag builders of ``repro_torch.launch.cli``: epochs of rate-coded
 stand-in data, a label-assignment evaluation after each, and one summary
 line with the synaptic-update throughput (SOP/s) and the accuracy.  With
 ``--backend fused`` the conv layers run the im2col conv kernel and the fc
-layer the dense kernel.  The reference launcher's engine and LM modes are
-not ported yet (ROADMAP queue 1 items 16 and 18).
+layer the dense kernel.
+
+``--engine`` trains a population of learning-engine replicas instead
+(``--replicas`` × ``--engine-pre`` × ``--engine-post``, ``--steps`` steps of
+Bernoulli rasters at ``--engine-rate``) on the selected rule and backend and
+reports the synaptic-op throughput: on ``--backend fused`` every step's
+update of all replicas is one launch of the dense kernel.  The reference
+launcher's LM mode is not ported yet (ROADMAP queue 1 item 18).
 """
 from __future__ import annotations
 
 import argparse
 import math
+import time
 
+import torch
+
+from repro_torch.core.engine import (EngineConfig, init_engine_population,
+                                     run_engine_population)
+from repro_torch.device import resolve_device
 from repro_torch.launch import cli
 from repro_torch.models import snn
 from repro_torch.train.stdp_trainer import train_to_accuracy
@@ -31,6 +43,59 @@ def synaptic_updates_per_step(cfg: snn.SNNConfig, batch: int) -> int:
         updates += (batch * math.prod(out_shape[:-1]) * snn._fan_in(spec, in_shape)
                     * spec.out_features)
     return updates
+
+
+def engine_training(args) -> tuple[dict, object, torch.Tensor]:
+    """Population engine training on the selected rule and backend; returns
+    ``(summary, final states, post rasters (R, T, n_post))``.
+
+    The weights and the rasters are drawn on the host from one
+    ``torch.Generator`` seeded by ``--seed`` (default 0).  The rollout runs
+    twice from the same initial state: the first run loads the kernels'
+    libraries (building them if the build directory lacks them) and warms
+    the allocator, and its wall time is the summary's ``compile_seconds``
+    (the reference's key; there is no trace to compile here); the second
+    run is timed as ``run_seconds``.  Both end in a device synchronisation.
+    """
+    dev = resolve_device(getattr(args, "device", "cuda"))
+    rule = getattr(args, "rule", "itp")
+    steps = getattr(args, "steps", None) or 100
+    cfg = EngineConfig(n_pre=args.engine_pre, n_post=args.engine_post, rule=rule,
+                       backend=args.backend, max_events=getattr(args, "max_events", None))
+    gen = torch.Generator().manual_seed(getattr(args, "seed", None) or 0)
+    states0 = init_engine_population(cfg, args.replicas, generator=gen, device=dev)
+    trains = (torch.rand((args.replicas, steps, cfg.n_pre), generator=gen)
+              < args.engine_rate).to(torch.float32).to(dev)
+
+    def run():
+        t0 = time.perf_counter()
+        out = run_engine_population(states0, trains, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    _, compile_s = run()
+    (states, post), run_s = run()
+    sops = args.replicas * steps * cfg.n_pre * cfg.n_post
+    summary = {
+        "rule": rule, "backend": args.backend, "device": str(dev),
+        "replicas": args.replicas, "n_pre": cfg.n_pre, "n_post": cfg.n_post,
+        "steps": steps,
+        "compile_seconds": round(compile_s, 3),
+        "run_seconds": round(run_s, 4),
+        "sops_per_s": sops / max(run_s, 1e-9),
+        "mean_post_rate": float(post.to(torch.float32).mean()),
+    }
+    print(f"engine training [{rule} / {args.backend} / {dev}]: {args.replicas} replicas × "
+          f"{cfg.n_pre}×{cfg.n_post} × {steps} steps — {summary['sops_per_s']:.3e} SOP/s "
+          f"(build + warm-up {compile_s:.2f}s, run {run_s:.3f}s, "
+          f"mean post rate {summary['mean_post_rate']:.3f})", flush=True)
+    return summary, states, post
+
+
+def run_engine_training(args) -> dict:
+    """The ``--engine`` mode: :func:`engine_training`'s summary (also printed)."""
+    return engine_training(args)[0]
 
 
 def run_snn_training(args) -> dict:
@@ -65,17 +130,35 @@ def run_snn_training(args) -> dict:
     return summary
 
 
-def main(argv: list[str] | None = None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's flags (both modes)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", action="store_true",
+                    help="train a population of learning-engine replicas")
     cli.add_net_flag(ap, "--snn", default=None)
     cli.add_update_flags(ap)
     cli.add_train_flags(ap)
     cli.add_device_flag(ap)
+    ap.add_argument("--engine-pre", type=int, default=256)
+    ap.add_argument("--engine-post", type=int, default=256)
+    ap.add_argument("--replicas", type=int, default=8)
+    ap.add_argument("--engine-rate", type=float, default=0.3,
+                    help="Bernoulli input spike rate (--engine mode)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="engine steps (--engine mode, default 100); with --snn, total "
+                    "simulation steps as one short epoch unless epoch flags are given")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.net:
-        ap.error("only the --snn <net> mode is ported; the engine and LM modes come "
-                 "with ROADMAP queue 1 items 16 and 18")
-    return run_snn_training(args)
+    if args.net:
+        return run_snn_training(args)
+    if args.engine:
+        return run_engine_training(args)
+    ap.error("the LM mode is not ported yet (ROADMAP queue 1 item 18); "
+             "use --snn <net> or --engine")
 
 
 if __name__ == "__main__":

@@ -13,11 +13,13 @@ static plan per trace.
 kernel's plain version for ``fused_interpret``, the event-driven
 gather/scatter for ``sparse``, or the reference rank-1 path plus clip); the
 session-word methods are the seam the serving layer rides.
+:meth:`UpdatePlan.tile_update` is the weight-sharded engine's update of one
+``(pre_tile, post_tile)`` tile (the same dispatch on tile-local operands),
+and :meth:`UpdatePlan.state_readout` / :meth:`UpdatePlan.readout_ndim` /
+:meth:`UpdatePlan.pre_events_crossing` the replicated views it slices.
 :meth:`UpdatePlan.fc_delta` / :meth:`UpdatePlan.conv_delta` are the batched
 SNN layer deltas (raw Δw: the layer owns eta, the batch normalisation, the
-clip and quantisation).  The shard_map tile update (``tile_update``,
-``pre_events_crossing``) comes with the sharded engine (ROADMAP queue 1
-item 15).
+clip and quantisation).
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.stdp import STDPParams
+from repro_torch.core.stdp import STDPParams, pair_gate
 from repro_torch.kernels.dispatch import (im2col_1d, im2col_2d, im2col_words_1d,
                                           im2col_words_2d)
+from repro_torch.kernels.itp_sparse.events import spike_events
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
 from repro_torch.kernels.itp_stdp_conv.ref import gated_contraction
 from repro_torch.plasticity.base import LearningRule, resolve_rule_backend
@@ -57,6 +60,32 @@ class UpdatePlan:
     po2: tuple[torch.Tensor, torch.Tensor] = dataclasses.field(compare=False)
     table: torch.Tensor | None = dataclasses.field(default=None, compare=False)
 
+    # -- readout views (what the sharded engine slices into tiles) ------
+
+    def state_readout(self, state: Any) -> torch.Tensor:
+        """The per-neuron view of a timing state the update reads: the rule's
+        kernel view on the kernel and sparse backends (``(*lanes, n)`` uint8
+        words, or ``(*lanes, rows, n)`` float32 rows), its dense float32
+        readout rows on ``reference``."""
+        if self.use_kernel or self.sparse:
+            return self.rule.kernel_view(state, packed=self.packed)
+        return self.rule.readout(state).to(torch.float32)
+
+    def readout_ndim(self) -> int:
+        """ndim of an unlaned :meth:`state_readout` (1: words, sliced along
+        axis 0; 2: rows, sliced along axis 1), known before any state
+        exists: read off a one-neuron state on the host."""
+        return self.state_readout(self.rule.init_state(1, self.depth, device="cpu")).dim()
+
+    def pre_events_crossing(self, pre_spikes: torch.Tensor) -> torch.Tensor:
+        """The global presynaptic event list every tile translates into its
+        rows (:meth:`tile_update`): on ``sparse`` the capped list of the
+        replicated spikes, taken once per step; otherwise an empty vector."""
+        if not self.sparse:
+            return torch.zeros((0,), dtype=torch.int64, device=pre_spikes.device)
+        events, _ = spike_events(pre_spikes, self.max_events)
+        return events
+
     # -- dense engine update --------------------------------------------
 
     def update(self, w: torch.Tensor, pre_spikes: torch.Tensor,
@@ -64,26 +93,63 @@ class UpdatePlan:
                post_state: Any) -> torch.Tensor:
         """Clipped update of the ``(*lanes, n_pre, n_post)`` matrix.
 
-        The sparse backend has no silent-step skip: the reference's
+        The kernel and sparse backends are :meth:`tile_update` on the whole
+        matrix.  The sparse backend has no silent-step skip: the reference's
         ``lax.cond`` would need the "any event" flag on the host, a wait for
         the card every step.  A silent step's event lists are all padding,
         so its update writes ``w``'s own values and the result is the same.
         """
+        if self.use_kernel or self.sparse:
+            return self.tile_update(w, pre_spikes, post_spikes,
+                                    self.state_readout(pre_state),
+                                    self.state_readout(post_state))
+        dw = self.rule.delta(pre_state, post_state, pre_spikes, post_spikes, self.stdp,
+                             depth=self.depth, pairing=self.pairing,
+                             compensate=self.compensate)
+        return torch.clamp(w + self.eta * dw, self.w_min, self.w_max)
+
+    # -- the sharded engine's tile update -------------------------------
+
+    def tile_update(self, w: torch.Tensor, pre_spikes: torch.Tensor,
+                    post_spikes: torch.Tensor, pre_read: torch.Tensor,
+                    post_read: torch.Tensor, *, pre_events: torch.Tensor | None = None,
+                    pre_start: int = 0) -> torch.Tensor:
+        """Clipped update of one ``(pre_tile, post_tile)`` tile of ``w``.
+
+        The dispatch of :meth:`update` on tile-local operands: the spikes and
+        the :meth:`state_readout` views are the tile's slices (the fused
+        kernels take them as they take a whole matrix).  On ``sparse``,
+        ``pre_events`` is the global list of :meth:`pre_events_crossing`; the
+        tile's rows start at global row ``pre_start``.  The port has no
+        dropping scatter, and an out-of-range index ends the CUDA context, so
+        the list is translated into the tile's rows with every out-of-tile
+        event turned into the padding sentinel ``tile`` and sorted to the end
+        (the in-tile events of an ascending list are one run): the sparse ops
+        then point it at the last in-tile event, as they do any padding.
+        The post events are taken from the tile's own post spikes.
+        """
         rule = self.rule
         if self.use_kernel or self.sparse:
-            views = (rule.kernel_view(pre_state, packed=self.packed),
-                     rule.kernel_view(post_state, packed=self.packed))
             kw = dict(packed=self.packed, depth=self.depth, pairing=self.pairing,
                       compensate=self.compensate, eta=self.eta, w_min=self.w_min,
                       w_max=self.w_max, po2=self.po2, table=self.table)
             if self.sparse:
-                return rule.sparse_update(w, pre_spikes, post_spikes, *views, self.stdp,
-                                          max_events=self.max_events, **kw)
-            return rule.fused_update(w, pre_spikes, post_spikes, *views, self.stdp,
-                                     interpret=self.interpret, **kw)
-        dw = rule.delta(pre_state, post_state, pre_spikes, post_spikes, self.stdp,
-                        depth=self.depth, pairing=self.pairing,
-                        compensate=self.compensate)
+                if pre_events is not None:
+                    tile = w.shape[-2]
+                    local = pre_events - pre_start
+                    local = torch.where((local >= 0) & (local < tile), local, tile)
+                    pre_events = torch.sort(local, dim=-1).values
+                return rule.sparse_update(w, pre_spikes, post_spikes, pre_read, post_read,
+                                          self.stdp, max_events=self.max_events,
+                                          pre_events=pre_events, **kw)
+            return rule.fused_update(w, pre_spikes, post_spikes, pre_read, post_read,
+                                     self.stdp, interpret=self.interpret, **kw)
+        mag = dict(depth=self.depth, pairing=self.pairing, compensate=self.compensate)
+        p = self.stdp
+        ltp = rule.read_magnitudes(pre_read, p.a_plus, p.tau_plus, **mag)
+        ltd = rule.read_magnitudes(post_read, p.a_minus, p.tau_minus, **mag)
+        ltp_en, ltd_en = pair_gate(pre_spikes[..., :, None], post_spikes[..., None, :])
+        dw = ltp_en * ltp[..., :, None] - ltd_en * ltd[..., None, :]
         return torch.clamp(w + self.eta * dw, self.w_min, self.w_max)
 
     # -- batched SNN layer deltas ---------------------------------------

@@ -151,9 +151,11 @@ class LearningRule(abc.ABC):
                       depth: int, pairing: str, compensate: bool, eta: float,
                       w_min: float, w_max: float, max_events: int | None,
                       po2: tuple[torch.Tensor, torch.Tensor],
-                      table: torch.Tensor | None = None) -> torch.Tensor:
+                      table: torch.Tensor | None = None,
+                      pre_events: torch.Tensor | None = None) -> torch.Tensor:
         """Event-driven clipped weight update from :meth:`kernel_view` views,
-        event lists taken from the current spikes under ``max_events``."""
+        event lists taken from the current spikes under ``max_events``
+        (the presynaptic list given as ``pre_events`` on a sharded tile)."""
         raise NotImplementedError(f"rule {self.name!r} has no event-driven datapath")
 
     def sparse_delta(self, pre_spike: torch.Tensor, post_spike: torch.Tensor,
@@ -288,12 +290,13 @@ class Rank1Rule(LearningRule):
     # -- event-driven (sparse) datapath: the itp_sparse ops ---------------
     def sparse_update(self, w, pre_spike, post_spike, pre_read, post_read,
                       p: STDPParams, *, packed, depth, pairing, compensate, eta,
-                      w_min, w_max, max_events, po2, table=None):
+                      w_min, w_max, max_events, po2, table=None, pre_events=None):
         del packed, po2, table
         ltp, ltd = self._magnitude_pair(pre_read, post_read, p, depth=depth,
                                         pairing=pairing, compensate=compensate)
         return sparse_weight_update(w, pre_spike, post_spike, ltp, ltd, eta=eta,
-                                    w_min=w_min, w_max=w_max, max_events=max_events)
+                                    w_min=w_min, w_max=w_max, max_events=max_events,
+                                    pre_events=pre_events)
 
     def sparse_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
                      *, packed, depth, pairing, compensate, max_events, po2, table=None):

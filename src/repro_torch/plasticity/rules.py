@@ -138,12 +138,13 @@ class HistoryRule(LearningRule):
 
     def sparse_update(self, w, pre_spike, post_spike, pre_read, post_read,
                       p: STDPParams, *, packed, depth, pairing, compensate, eta,
-                      w_min, w_max, max_events, po2, table=None):
+                      w_min, w_max, max_events, po2, table=None, pre_events=None):
         del p, compensate, table  # the plan's po2 vectors carry them
         ltp, ltd = self._sparse_magnitudes(pre_read, post_read, packed=packed,
                                            depth=depth, pairing=pairing, po2=po2)
         return sparse_weight_update(w, pre_spike, post_spike, ltp, ltd, eta=eta,
-                                    w_min=w_min, w_max=w_max, max_events=max_events)
+                                    w_min=w_min, w_max=w_max, max_events=max_events,
+                                    pre_events=pre_events)
 
     def sparse_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
                      *, packed, depth, pairing, compensate, max_events, po2, table=None):

@@ -14,7 +14,8 @@ Lanes never interact, so a session's trajectory is bit-identical whether it
 is served solo or interleaved with others.  ``learn=False`` requests run the
 same dynamics read-only.  :class:`Server` is the async front end:
 ``submit``/``poll`` around a deterministic FIFO admission rule, a background
-serving thread, and a graceful ``shutdown(drain=True)``.
+serving thread, a graceful ``shutdown(drain=True)``, and checkpoint/restore
+of its session store.
 """
 from __future__ import annotations
 
@@ -284,3 +285,11 @@ class Server:
             self._thread.join()
             self._thread = None
         return self.drain() if drain else 0
+
+    # -- persistence ----------------------------------------------------
+
+    def checkpoint(self, ckpt_dir: str, step: int | None = None) -> str:
+        return self.store.checkpoint(ckpt_dir, step)
+
+    def restore(self, ckpt_dir: str, step: int | None = None) -> None:
+        self.store.restore(ckpt_dir, step)

@@ -4,8 +4,11 @@ A session's plasticity cache is the rule's packed uint8 word planes — one
 history word per neuron for the intrinsic-timing rules — serialized and
 rehydrated through :meth:`repro_torch.plasticity.UpdatePlan.session_words`
 / ``session_state``.  :class:`SessionStore` owns the id → state map with LRU
-eviction under an optional capacity bound and the byte accounting.  State
-lives on the store's device.  Checkpoint/restore comes with a later slice.
+eviction under an optional capacity bound, the byte accounting, and
+checkpoint/restore through :mod:`repro_torch.checkpoint` (atomic,
+checksummed, session ids in LRU order in the manifest's ``extra``; the
+reference's format, so either package restores the other's store).  State
+lives on the store's device.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Iterator, NamedTuple
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import plasticity
 from repro_torch.core.engine import EngineConfig
 from repro_torch.device import resolve_device
@@ -146,3 +150,43 @@ class SessionStore:
         per = (self.resident_bytes_per_session() if resident
                else self.state_bytes_per_session())
         return float(1 << 30) / per
+
+    # -- checkpoint / restore -------------------------------------------
+
+    def checkpoint(self, ckpt_dir: str, step: int | None = None) -> str:
+        """Atomic checksummed save of every resident session.
+
+        The tree is ``{sid: SessionState}``; the session ids in LRU order and
+        the config's rule and shape ride in the manifest's ``extra``, so
+        :meth:`restore` rebuilds its target without other state.
+        """
+        if step is None:
+            step = len(ckpt.list_checkpoints(ckpt_dir))
+        extra = {
+            "sessions": list(self._sessions),   # LRU order, oldest first
+            "rule": self.cfg.rule,
+            "n_pre": self.cfg.n_pre,
+            "n_post": self.cfg.n_post,
+            "depth": self.cfg.depth,
+        }
+        return ckpt.save_checkpoint(ckpt_dir, step, dict(self._sessions), extra=extra)
+
+    def restore(self, ckpt_dir: str, step: int | None = None) -> None:
+        """Replace the resident map with a checkpoint's sessions, on this
+        store's device, in the saved LRU order; every leaf's checksum is
+        verified.  A checkpoint of another rule or shape raises a
+        ``ValueError`` that names the field; none at all, ``FileNotFoundError``."""
+        if step is None:
+            step = ckpt.latest_checkpoint(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+        extra = ckpt.load_manifest(ckpt_dir, step)["extra"]
+        for field in ("rule", "n_pre", "n_post", "depth"):
+            have, saved = getattr(self.cfg, field), extra[field]
+            if saved != have:
+                raise ValueError(f"checkpoint {field}={saved!r} does not match "
+                                 f"store config {field}={have!r}")
+        sids = extra["sessions"]
+        target = {sid: self.fresh_state(sid) for sid in sids}
+        restored = ckpt.restore_checkpoint(ckpt_dir, step, target)
+        self._sessions = OrderedDict((sid, restored[sid]) for sid in sids)

@@ -1151,3 +1151,157 @@ def test_mstdp_on_card_fused_matches_reference(cuda, net):
     assert of.sum() > 0 and torch.equal(of, orf)
     for a, b in zip(wf, wr):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 if net != "engine" else 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, the restart runner, the engine launcher, the sharded
+# engine on the card
+# ---------------------------------------------------------------------------
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """Elastic restore: a checkpoint written from the card restores on the CPU
+    (and onto the target's device by default), and the other way round."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.history import init_history
+
+    g = torch.Generator().manual_seed(3)
+    tree = {"w": torch.rand((784, 100), generator=g), "t": 5,
+            "hist": init_history(100, 7)._replace(
+                planes=torch.randint(0, 2, (7, 100), generator=g, dtype=torch.uint8))}
+    on_card = {"w": tree["w"].to(cuda), "t": tree["t"],
+               "hist": tree["hist"]._replace(planes=tree["hist"].planes.to(cuda),
+                                             head=tree["hist"].head.to(cuda))}
+    save_checkpoint(str(tmp_path / "card"), 1, on_card)
+    back = restore_checkpoint(str(tmp_path / "card"), 1, tree)           # CPU target
+    assert back["w"].device.type == "cpu" and torch.equal(back["w"], tree["w"])
+    assert torch.equal(back["hist"].planes, tree["hist"].planes) and back["t"] == 5
+    save_checkpoint(str(tmp_path / "cpu"), 2, tree)
+    up = restore_checkpoint(str(tmp_path / "cpu"), 2, tree, device=cuda)
+    assert up["w"].device.type == "cuda" and torch.equal(up["w"].cpu(), tree["w"])
+    assert up["hist"].head.device.type == "cuda"
+    up2 = restore_checkpoint(str(tmp_path / "cpu"), 2, on_card)
+    assert up2["hist"].planes.device.type == "cuda"
+
+
+@pytest.mark.parametrize("rule", ("itp", "exact", "mstdp"))
+def test_persist_round_trip_on_card(cuda, tmp_path, rule):
+    """The slice's serving load on fused: 16 requests, checkpoint, restore into
+    a new Server on the card, the other 16: equal to an uninterrupted server
+    bit for bit."""
+    from repro_torch.launch.serve import synthetic_load
+
+    cfg = EngineConfig(n_pre=784, n_post=100, rule=rule, backend="fused")
+    scfg = ServeConfig(max_batch=8, t_steps=16, theta_plus=0.05)
+    load = synthetic_load(torch.Generator().manual_seed(1), sessions=8, requests=32,
+                          t_steps=16, n_pre=784, rate=0.3)
+    whole = Server(cfg, scfg, device=cuda)
+    tw = [whole.submit(r) for r in load]
+    whole.drain()
+    first = Server(cfg, scfg, device=cuda)
+    for r in load[:16]:
+        first.submit(r)
+    first.drain()
+    first.checkpoint(str(tmp_path))
+    second = Server(cfg, scfg, device=cuda)
+    second.restore(str(tmp_path))
+    ts = [second.submit(r) for r in load[16:]]
+    second.drain()
+    for a, b in zip(tw[16:], ts):
+        assert np.array_equal(whole.poll(a).post, second.poll(b).post)
+    assert second.store.session_ids == whole.store.session_ids
+    for sid in whole.store.session_ids:
+        x, y = whole.store.peek(sid), second.store.peek(sid)
+        assert y.w.device.type == "cuda" and x.t == y.t
+        for p, q in zip((x.w, *x.pre_words, *x.post_words, x.v, x.theta),
+                        (y.w, *y.pre_words, *y.post_words, y.v, y.theta)):
+            assert torch.equal(p, q)
+
+
+def test_runner_restart_on_card_is_bit_equal(cuda, tmp_path):
+    """TrainingRunner over an engine population on fused: a failure at step 12
+    restores step 10 and replays; the result equals an uninterrupted run, and
+    kernel 1 launches once per step run (20 + 2 replayed)."""
+    from repro_torch.core import engine as TE
+    from repro_torch.distributed import FailureInjector, RunnerConfig, TrainingRunner
+
+    cfg = EngineConfig(n_pre=256, n_post=256, backend="fused")
+
+    def batch_fn(step):
+        g = torch.Generator().manual_seed(1000 + step)
+        return (torch.rand((4, 256), generator=g) < 0.3).float().to(cuda)
+
+    def step_fn(state, x):
+        state, post = TE.engine_step(state, x, cfg)
+        return state, {"rate": post.float().mean()}
+
+    runs = []
+    for n, injector in (("clean", None), ("faulty", FailureInjector({12}))):
+        state = TE.init_engine_population(cfg, 4, generator=torch.Generator().manual_seed(0),
+                                          device=cuda)
+        K.itp_stdp_update_packed.launches = 0
+        runner = TrainingRunner(RunnerConfig(ckpt_dir=str(tmp_path / n), ckpt_every=5),
+                                step_fn, batch_fn)
+        runs.append((runner.run(state, 20, injector), K.itp_stdp_update_packed.launches,
+                     runner.restarts))
+    (a, na, ra), (b, nb, rb) = runs
+    assert (na, ra, nb, rb) == (20, 0, 22, 1)
+    assert torch.equal(a.w, b.w) and torch.equal(a.neurons.v, b.neurons.v)
+    assert torch.equal(a.pre_hist.planes, b.pre_hist.planes)
+
+
+def test_engine_launcher_on_card_fused_equals_reference(cuda):
+    import argparse
+
+    from repro_torch.launch.train import engine_training
+
+    out = {}
+    for rule, backend in (("itp", "fused"), ("itp", "reference"), ("exact", "fused"),
+                          ("exact", "reference")):
+        args = argparse.Namespace(rule=rule, backend=backend, engine_pre=256, engine_post=256,
+                                  replicas=8, steps=20, engine_rate=0.3, device="cuda")
+        out[rule, backend] = engine_training(args)
+    for rule in ("itp", "exact"):
+        (sf, stf, pf), (sr, str_, pr) = out[rule, "fused"], out[rule, "reference"]
+        assert sf["device"].startswith("cuda") and torch.equal(pf, pr)
+        if rule == "itp":
+            assert torch.equal(stf.w, str_.w)
+        else:
+            torch.testing.assert_close(stf.w, str_.w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rule,backend", (("itp", "fused"), ("exact", "fused"),
+                                          ("linear", "fused"), ("itp", "sparse")))
+def test_sharded_engine_on_nccl_equals_run_engine(cuda, tmp_path, rule, backend):
+    """A 1 × 1 NCCL grid in this process: the sharded engine at 784 × 100 over
+    32 steps follows the unsharded run_engine bit for bit, one kernel launch
+    a step on fused."""
+    import torch.distributed as dist
+
+    from repro_torch.core import engine as TE
+    from repro_torch.core.engine_sharded import make_sharded_engine_step, shard_engine_state
+    from repro_torch.distributed.sharding import init_process_group, make_grid
+
+    cfg = EngineConfig(n_pre=784, n_post=100, rule=rule, backend=backend)
+    g = torch.Generator().manual_seed(4)
+    w0 = torch.rand((784, 100), generator=g) * 0.04
+    raster = (torch.rand((32, 784), generator=g) < 0.02).float().to(cuda)
+    ref_st, ref_post = TE.run_engine(TE.init_engine(cfg, w0, device=cuda), raster, cfg)
+    init_process_group(cuda, rank=0, world_size=1,
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        grid = make_grid(1, 1, device=cuda)
+        st = shard_engine_state(TE.init_engine(cfg, w0, device=cuda), grid)
+        step = make_sharded_engine_step(cfg, grid)
+        kernel = {"itp": K.itp_stdp_update_packed, "exact": NK.counter_stdp_update,
+                  "linear": NK.counter_stdp_update}[rule]
+        kernel.launches = 0
+        posts = []
+        for x in raster:
+            st, post = step(st, x)
+            posts.append(post)
+        torch.cuda.synchronize()
+        assert kernel.launches == (32 if backend == "fused" else 0)
+    finally:
+        dist.destroy_process_group()
+    assert 0 < ref_post.float().mean() < 1
+    assert torch.equal(torch.stack(posts), ref_post) and torch.equal(st.w, ref_st.w)

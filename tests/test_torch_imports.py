@@ -1,7 +1,9 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports jax or the JAX package; the entry points (serving and
-training) run on CUDA unless the caller passes device="cpu", and raise on a
-host without CUDA."""
+chip_smoke.py, imports jax or the JAX package; the entry points (serving,
+training, the engine launcher, session restore and the sharded engine's
+process group) run on CUDA unless the caller passes device="cpu", and raise
+on a host without CUDA."""
+import argparse
 import ast
 from pathlib import Path
 
@@ -10,6 +12,8 @@ import torch
 
 from repro_torch.core.engine import EngineConfig, init_engine, init_engine_population
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import init_process_group
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.cli import sampler_for
 from repro_torch.models.snn import fault_csnn, init_snn
@@ -80,3 +84,24 @@ def test_resolve_device_rejects_other_devices():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_engine_launcher_ckpt_and_grid_entry_points_default_to_cuda(tmp_path):
+    """The engine launcher, the serving launcher with --ckpt-dir and the
+    sharded engine's process group."""
+    engine = argparse.Namespace(rule="itp", backend="fused", engine_pre=8, engine_post=8,
+                                replicas=1, steps=2, engine_rate=0.3)
+    entry = (lambda: launch_train.run_engine_training(engine),
+             lambda: launch_train.main(["--engine", "--replicas", "1", "--engine-pre", "8",
+                                        "--engine-post", "8", "--steps", "2"]),
+             lambda: launch_serve.main(["--ckpt-dir", str(tmp_path), "--requests", "1"]),
+             lambda: init_process_group("cuda", rank=0, world_size=1,
+                                        init_method=f"file://{tmp_path}/store"))
+    if torch.cuda.is_available():
+        assert launch_train.run_engine_training(engine)["device"].startswith("cuda")
+        return
+    for make in entry:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    engine.device = "cpu"
+    assert launch_train.run_engine_training(engine)["device"] == "cpu"

@@ -92,7 +92,14 @@ printed on lines of its own:
              timing words exact, weights within rtol=1e-5, atol=1e-6 (conv
              layers rtol=atol=1e-5); one line per cell with its max error and
              its launches (the sparse cells run uncapped here);
-10. sparse_mstdp — the sparse backend and mstdp at full width: the sparse
+10. audit   — the port's graph audit (``repro_torch.analysis.graph_audit``)
+             with CUDA state: all 84 cells of BENCH_static.json traced on
+             fake CUDA tensors (``make_fx``), 0 violations, no stale float64
+             allowlist entry, each fused cell's one kernel operator
+             (``torch.ops.repro_torch.*``) as the path predicts; then the 36
+             fused and sparse cells' traced graphs run on the card for 8
+             steps beside the eager step, each step bit-equal, launches equal;
+11. sparse_mstdp — the sparse backend and mstdp at full width: the sparse
              ``itp`` engine at 784×100, depth 7, 64 steps at input rate 0.02
              (weights on [0, 0.04), so the posts fire at ~10 %) bit-equal to
              ``fused`` at every step, a run capped at 8 events twice
@@ -107,7 +114,7 @@ printed on lines of its own:
              ``mstdp``/``fused`` (kernel 4 on magnitude planes) and on
              ``itp``/``sparse`` (kernel 4 on the gathered rows), each held
              against ``reference``;
-11. persist — session checkpointing and the restart runner: the slice's
+12. persist — session checkpointing and the restart runner: the slice's
              serving load with ``itp``, ``exact`` and ``mstdp`` on ``fused``,
              16 requests, a checkpoint, a restore into a new ``Server``, the
              other 16: states and post rasters bit-equal to an uninterrupted
@@ -117,24 +124,24 @@ printed on lines of its own:
              (8 × 256 × 256, ``itp``/``fused``, 100 steps, a checkpoint every
              25, a failure injected at step 60): bit-equal to the
              uninterrupted run, 110 kernel-1 launches (steps 50-59 replayed);
-12. engine  — ``launch.train --engine`` at its defaults (8 replicas × 256 ×
+13. engine  — ``launch.train --engine`` at its defaults (8 replicas × 256 ×
              256 × 100 steps at input rate 0.3; the launcher's parser and
              ``engine_training``) with ``itp``/``fused``, ``exact``/``fused``
              and ``itp``/``sparse``: SOP/s, the warm-up seconds, launches = 2 ×
              steps on fused (warm-up and timed run), each against the same run
              on ``reference`` on the card (``itp``/``fused`` bitwise, the
              others spikes exact and w within rtol=1e-5, atol=1e-6);
-13. sharded — the weight-sharded engine on a 1 × 1 NCCL grid in this
+14. sharded — the weight-sharded engine on a 1 × 1 NCCL grid in this
              process (``tcp://127.0.0.1`` on a free port; the group destroyed
              at the end): 784 × 100 over 64 steps at the sparse engine's
              inputs for ``itp``, ``exact`` and ``linear`` on ``fused`` and
              ``itp`` on ``sparse``, each == the unsharded ``run_engine``
              (spikes, w and v bitwise), one kernel launch a step on fused, the
              sharded step's wall ms beside the unsharded one's;
-14. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+15. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving, the fc
-   layers of the training runs and phases 11-13, its times at the shape
-   where most of them fall; the matrix phase's launches added), the
+   layers of the training runs and phases 12-14, its times at the shape
+   where most of them fall; the matrix and audit phases' launches added), the
    ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
    line.
 
@@ -243,10 +250,7 @@ LIF_POPULATION = (16, 24 * 24 * 12)
 LIF_STEPS = 30
 LIF_FRAC_BITS = 8
 PAPER_HISTORY_DEPTH = 7
-# qwen3-0.6b (src/repro/configs/qwen3_0_6b.py): d_model 1024, 16 heads × 128,
-# 8 kv heads, d_ff 3072, vocab 151,936, q/k norms, tied embedding, 28 layers
-QWEN3 = dict(d_model=1024, n_heads=16, n_kv_heads=8, head_dim=128, d_ff=3072,
-             vocab=151_936, n_layers=28)
+QWEN3 = "qwen3-0.6b"                    # its widths: the port's config (repro_torch.configs)
 QWEN3_LAYERS = 2                        # of 28: a cut that bounds chip time
 ADAMW_STEPS = 3
 DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
@@ -882,15 +886,19 @@ def _ratio_line(what: str, counter: dict, itp: dict) -> None:
 
 
 def _qwen3_shapes(layers: int) -> dict:
-    """The parameter tree of qwen3-0.6b with ``layers`` stacked blocks, leaf
+    """The parameter tree of qwen3-0.6b with ``layers`` stacked blocks, its
+    widths read from the port's config (``repro_torch.configs``), leaf
     shapes as the JAX package's ``models/transformer.py:107 init_model``
     builds them: the embedding (``layers.py:133``, tied, so no output
     matrix), the final RMS norm, and per block two norms, attention
     (``attention.py:25``: wq, wk, wv, wo, q/k norms) and the SwiGLU MLP
     (``layers.py:99``: gate, up, down)."""
-    d, hd, ff = QWEN3["d_model"], QWEN3["head_dim"], QWEN3["d_ff"]
-    q, kv, n = QWEN3["n_heads"] * hd, QWEN3["n_kv_heads"] * hd, layers
-    return {"embed": {"tok": (QWEN3["vocab"], d)}, "final_norm": {"scale": (d,)},
+    from repro_torch.configs import get_config
+
+    cfg = get_config(QWEN3)
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    q, kv, n = cfg.n_heads * hd, cfg.n_kv_heads * hd, layers
+    return {"embed": {"tok": (cfg.vocab_size, d)}, "final_norm": {"scale": (d,)},
             "blocks": {"norm1": {"scale": (n, d)}, "norm2": {"scale": (n, d)},
                        "attn": {"wq": (n, d, q), "wk": (n, d, kv), "wv": (n, d, kv),
                                 "wo": (n, q, d), "q_norm": (n, hd), "k_norm": (n, hd)},
@@ -930,6 +938,7 @@ def phase_side_numerics(device) -> dict:
     the path's shapes, timed."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.core import lif as TL
     from repro_torch.core.drift import paper_metrics
     from repro_torch.core.encoding import isi_histogram_batched, select_history_depth
@@ -1045,7 +1054,7 @@ def phase_side_numerics(device) -> dict:
                                                  tree_leaves((pp, ps.mu, ps.nu))))
     moved = sum(int((a != b).sum()) for a, b in zip(tree_leaves(kp), tree_leaves(params)))
     _phase("side_numerics", f"ITP-AdamW on qwen3-0.6b leaf shapes ({QWEN3_LAYERS} of "
-           f"{QWEN3['n_layers']} layers: a cut that bounds chip time; {leaves} leaves, "
+           f"{get_config(QWEN3).n_layers} layers: a cut that bounds chip time; {leaves} leaves, "
            f"{n_params} float32 parameters), {ADAMW_STEPS} steps: {wall * 1e3:.3f} ms "
            f"(gradients drawn inside); lr {float(km['lr']):.6g}, grad norm "
            f"{float(km['grad_norm']):.6g}; {moved} parameters moved; kernels == plain "
@@ -1461,6 +1470,93 @@ def phase_matrix(device) -> dict:
     _phase("matrix", f"{len(cells)} cells OK in {time.perf_counter() - t0:.2f} s; launches "
            f"{launches}")
     return launches
+
+
+def _audit_kernel_op(rule: str, backend: str, kind: str) -> str | None:
+    """The one kernel operator a step of an audit cell holds: the history
+    rules' packed update / conv delta (kernels 1, 3), the counter rules' (5,
+    6), mstdp's on magnitude planes (2, 4); the sparse conv delta runs kernel
+    4 on the gathered rows; the reference and fused_interpret cells none."""
+    conv = kind in ("conv2d", "conv1d")
+    if backend == "sparse":
+        return "itp_stdp_conv_delta" if conv else None
+    if backend != "fused":
+        return None
+    if rule in COUNTER_WINDOWS:
+        return "counter_conv_delta" if conv else "counter_stdp_update"
+    base = "itp_stdp_conv_delta" if conv else "itp_stdp_update"
+    return base + "_packed" if rule in ("itp", "itp_nocomp") else base
+
+
+def phase_audit(device) -> dict:
+    """The graph audit of the port (``repro_torch.analysis.graph_audit``) with
+    CUDA state: every cell of BENCH_static.json traced on fake CUDA tensors,
+    0 violations, no stale float64 allowlist entry, and each cell's kernel
+    operators as the path predicts.  Then phase ``matrix``'s 36 fused and
+    sparse cells: the traced graph run on the card for MATRIX_STEPS steps
+    beside the eager step, each step bit-equal, the graph launching what the
+    eager step launches (the counters set to 0 just before each step and
+    read just after).  Returns the graphs' launches."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.analysis import graph_audit as GA
+
+    t0 = time.perf_counter()
+    report = GA.run_audit(device=device)
+    static = json.loads((ROOT / "BENCH_static.json").read_text())["static_audit"]["cells"]
+    cells = {(c["rule"], c["backend"], c["kind"]): c for c in report["cells"]}
+    if set(cells) != {(c["rule"], c["backend"], c["kind"]) for c in static}:
+        raise SystemExit("audit: the traced cells are not BENCH_static.json's")
+    bad = [c for c in report["cells"] if c["violations"]]
+    if bad or report["stale_allowlist"]:
+        raise SystemExit(f"audit: violations {bad}, stale allowlist "
+                         f"{report['stale_allowlist']}")
+    for (rule, backend, kind), c in cells.items():
+        want = _audit_kernel_op(rule, backend, kind)
+        if c["kernel_ops"] != ({f"repro_torch::{want}": 1} if want else {}):
+            raise SystemExit(f"audit {rule}/{backend}/{kind}: kernel ops {c['kernel_ops']}, "
+                             f"expected {want}")
+    trace_s = time.perf_counter() - t0
+    f64 = sum(c["has_f64"] for c in report["cells"])
+    _phase("audit", f"{report['n_cells']} cells traced on {device} in {trace_s:.2f} s: 0 "
+           f"violations, uint8 in every packed cell, float64 in {f64} cells, all at "
+           f"allowlisted sites, no stale entry; one kernel op per fused cell")
+
+    counters = _train_counters()
+    launches: dict[str, int] = {}
+    t0 = time.perf_counter()
+    runs = [k for k in cells if k[1] in MATRIX_BACKENDS]
+    for i, (rule, backend, kind) in enumerate(runs):
+        state, spikes, step = GA.cell_program(rule, backend, kind, device=device)
+        gm = GA.trace(step, state, spikes)
+        gen = torch.Generator().manual_seed(200 + i)
+        eager = graph = state
+        for _ in range(MATRIX_STEPS):
+            x = (torch.rand(spikes.shape, generator=gen) < 0.3).float().to(device)
+            for fn in counters.values():
+                fn.launches = 0
+            eager, out_e = step(eager, x)
+            want = {k: fn.launches for k, fn in counters.items()}
+            for fn in counters.values():
+                fn.launches = 0
+            graph, out_g = gm(graph, x)
+            got = {k: fn.launches for k, fn in counters.items()}
+            if got != want:
+                raise SystemExit(f"audit {rule}/{backend}/{kind}: the graph launched {got}, "
+                                 f"the eager step {want}")
+            for a, b in zip(tree_leaves((eager, out_e)), tree_leaves((graph, out_g)),
+                            strict=True):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"audit {rule}/{backend}/{kind}: graph != eager")
+            for k, n in _kernel_names(got, rule).items():
+                launches[k] = launches.get(k, 0) + n
+    torch.cuda.synchronize()
+    _phase("audit", f"{len(runs)} traced fused/sparse graphs run on the card for "
+           f"{MATRIX_STEPS} steps each: bit-equal to eager, launches equal, in "
+           f"{time.perf_counter() - t0:.2f} s; graph launches {launches}")
+    return {"launches": launches, "cells": report["n_cells"], "graphs": len(runs),
+            "trace_s": trace_s}
 
 
 def _device_total_ms(fn, *, n: int = 50) -> tuple[float, float]:
@@ -2037,6 +2133,7 @@ def main() -> int:
     kernels.update(side["kernels"])
     train = phase_train(device)
     matrix = phase_matrix(device)
+    audit = phase_audit(device)
     sparse_mstdp = phase_sparse_mstdp(device)
     # the mstdp serving load launches kernel 2 at serving's shape, the mstdp
     # and sparse training runs kernels 2 and 4
@@ -2078,6 +2175,9 @@ def main() -> int:
     for name, n in matrix.items():
         launches[name] += n
         kernels[name].setdefault("launches_by_shape", {})["matrix"] = n
+    for name, n in audit["launches"].items():
+        launches[name] += n
+        kernels[name].setdefault("launches_by_shape", {})["audit"] = n
     e = sparse_mstdp["engine"]
     _phase("sparse_mstdp", f"sparse update at 784x100 (density pre {e['pre_density']:.4f}, "
            f"post {e['post_density']:.4f}): {e['sparse_device_ms']:.5f} ms device against "

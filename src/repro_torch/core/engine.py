@@ -91,6 +91,15 @@ def init_engine(cfg: EngineConfig, w_init=None, *,
     return _init(cfg, (), w_init, generator, device)
 
 
+def prototype_engine(w_init=None, *, generator: torch.Generator | None = None,
+                     device: torch.device | str = "cuda"
+                     ) -> tuple[EngineConfig, EngineState]:
+    """The paper's 4×4 fully connected prototype (§III-B / Table V row 1),
+    initialised as :func:`init_engine` does."""
+    cfg = EngineConfig(n_pre=4, n_post=4)
+    return cfg, init_engine(cfg, w_init, generator=generator, device=device)
+
+
 def _quantise(w: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
     """Snap to the (w_bits-1)-bit magnitude grid on [w_min, w_max]."""
     levels = (1 << (cfg.w_bits - 1)) - 1

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import eager
+
 LN2 = math.log(2.0)
 
 
@@ -201,6 +203,7 @@ def magnitudes_depth_major(planes: torch.Tensor, amplitude: float, tau: float,
 
 
 @lru_cache(maxsize=64)
+@eager
 def _po2_weights_on(depth: int, tau: float, compensate: bool,
                     device: torch.device) -> torch.Tensor:
     """:func:`po2_weights` copied to ``device`` once: a copy per step from

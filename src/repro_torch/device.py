@@ -5,10 +5,17 @@ resolves it here: a CUDA device on a host without one raises instead of
 quietly running on the CPU, and a CUDA device switches off TF32 for float32
 matrix products (the parity contract forbids it: TF32 keeps about three
 decimal digits, the JAX reference computes in full float32).
+
+:func:`eager` wraps the functions that build the constant tensors the port caches
+per shape and device (po2 read vectors, window tables, im2col indices,
+update plans).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -25,3 +32,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def eager(build):
+    """``build`` run with every active dispatch mode set aside, so the
+    tensors it returns are real ones even when it is first called inside a
+    trace (``make_fx``, ``torch.export``).  Put it under a
+    ``functools.lru_cache``: a cache that kept a fake tensor from a trace
+    would hand it to every later eager call and every later trace.  A trace
+    holds such a tensor as a constant, the same bits the eager path reads."""
+    @functools.wraps(build)
+    def built_eagerly(*args, **kwargs):
+        with _disable_current_modes():
+            return build(*args, **kwargs)
+    return built_eagerly

@@ -32,27 +32,36 @@ def load(stem: str, entry_points: dict[str, list]) -> ctypes.CDLL:
     return _build.library(stem, set_types)
 
 
+def check_operands(symbol: str, operands: dict[str, tuple[torch.Tensor, torch.dtype]],
+                   scalars: dict[str, tuple[torch.Tensor, torch.dtype]] | None = None
+                   ) -> None:
+    """The rules a launch and its fake kernel share: every operand has the
+    first one's shape and its own stated dtype; each of ``scalars`` (one
+    element each, of any shape) its dtype."""
+    shape = next(iter(operands.values()))[0].shape
+    for name, (t, dtype) in {**operands, **(scalars or {})}.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{symbol}: {name} must be {dtype}, got {t.dtype}")
+        if name in operands and t.shape != shape:
+            raise ValueError(f"{symbol}: {name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+
+
 def check(symbol: str, operands: dict[str, tuple[torch.Tensor, torch.dtype]],
           scalars: dict[str, tuple[torch.Tensor, torch.dtype]] | None = None
           ) -> torch.device:
-    """Raise unless every operand lies on the first one's CUDA device, has the
-    first one's shape, its own stated dtype, and is contiguous; each of
-    ``scalars`` (one element each, of any shape) is checked for device and
-    dtype alone."""
-    first = next(iter(operands.values()))[0]
-    dev, shape = first.device, first.shape
+    """Raise unless every operand lies on the first one's CUDA device,
+    :func:`check_operands` holds, and every operand is contiguous (checked
+    in that order); each of ``scalars`` is checked for device and dtype
+    alone."""
+    dev = next(iter(operands.values()))[0].device
     if dev.type != "cuda":
         raise ValueError(f"{symbol}: tensors must be on a CUDA device or the CPU, got {dev}")
-    for name, (t, dtype) in {**operands, **(scalars or {})}.items():
+    for name, (t, _) in {**operands, **(scalars or {})}.items():
         if t.device != dev:
             raise ValueError(f"{symbol}: {name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{symbol}: {name} must be {dtype}, got {t.dtype}")
-        if name not in operands:
-            continue
-        if t.shape != shape:
-            raise ValueError(f"{symbol}: {name} has shape {tuple(t.shape)}, expected "
-                             f"{tuple(shape)}")
+    check_operands(symbol, operands, scalars)
+    for name, (t, _) in operands.items():
         if not t.is_contiguous():
             raise ValueError(f"{symbol}: {name} must be contiguous")
     return dev

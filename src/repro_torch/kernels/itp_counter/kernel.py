@@ -6,11 +6,14 @@ synapse) and ``counter_conv_delta`` (the im2col conv delta, the one-launch
 cooperative float64 contraction of ``csrc/gated_sum.cuh``).  See the source for the
 design and its bound.
 
-A wrapper given CPU tensors runs the kernel's plain version (``ref.py``);
-given CUDA tensors it launches the kernel on the current stream or raises —
-there is no fallback.  Each wrapper counts its calls that launch the kernel
-in a plain integer attribute, ``<wrapper>.launches``, which callers may
-reset to 0.
+Each wrapper calls its registered operator (``torch.ops.repro_torch.*``,
+``kernels/_ops.py``): given CPU tensors it runs the kernel's plain version
+(``ref.py``); given CUDA tensors it launches the kernel on the current
+stream or raises — there is no fallback.  Each wrapper counts its calls
+that launch the kernel in a plain integer attribute,
+``<wrapper>.launches``, which callers may reset to 0; only the operator's
+CUDA kernel adds to it.  The conv delta's float64 partials are the CUDA
+kernel's own scratch, allocated inside it.
 
 Shapes: the dense update takes optional leading lane axes, one independent
 engine per lane, all in one launch: ``w`` ``(*lanes, n_pre, n_post)``
@@ -27,7 +30,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 from repro_torch.kernels.itp_counter.ref import counter_conv_delta_ref, counter_stdp_update_ref
 
 WINDOW_CODES = {"exact": 0, "linear": 1, "imstdp": 2}
@@ -52,14 +55,47 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(symbol: str, dev: torch.device, args: dict, want: dict, *, depth: int,
-           window: str) -> None:
-    """Device, dtype and shape checks shared by both wrappers."""
-    if dev.type != "cuda":
-        raise ValueError(f"{symbol}: tensors must be on a CUDA device or the CPU, got {dev}")
-    for name, t in args.items():
-        if t.device != dev:
-            raise ValueError(f"{symbol}: {name} is on {t.device}, expected {dev}")
+def _update_operands(w, pre_spike, post_spike, pre_words, post_words, lut, *,
+                     depth) -> tuple[dict, dict]:
+    """The dense update's operands and their expected shapes (lane axes
+    included); ``w`` must be float32."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"counter_stdp_update: w must be float32, got {w.dtype}")
+    lanes, (n_pre, n_post) = w.shape[:-2], w.shape[-2:]
+    args = {"pre_spike": pre_spike, "post_spike": post_spike, "pre_words": pre_words,
+            "post_words": post_words, "lut": lut}
+    want = {"pre_spike": (*lanes, n_pre), "post_spike": (*lanes, n_post),
+            "pre_words": (*lanes, n_pre), "post_words": (*lanes, n_post),
+            "lut": (2, depth)}
+    return args, want
+
+
+def _conv_operands(pre_patches, post_spikes, pre_words, post_words, lut, *,
+                   depth) -> tuple[dict, dict]:
+    """The conv delta's operands and their expected shapes: ``(M, K)``
+    patches and ``(M, C)`` spikes."""
+    if pre_patches.dim() != 2 or post_spikes.dim() != 2:
+        raise ValueError(f"counter_conv_delta: spikes must be (M, K) and (M, C), got "
+                         f"{tuple(pre_patches.shape)} and {tuple(post_spikes.shape)}")
+    (m, k), c = pre_patches.shape, post_spikes.shape[1]
+    args = {"post_spikes": post_spikes, "pre_words": pre_words, "post_words": post_words,
+            "lut": lut}
+    want = {"post_spikes": (m, c), "pre_words": (m, k), "post_words": (m, c),
+            "lut": (2, depth)}
+    return args, want
+
+
+def _check(symbol: str, args: dict, want: dict, *, depth: int, window: str,
+           dev: torch.device | None = None) -> None:
+    """Dtype and shape checks shared by both kernels' launches and fake
+    kernels; given ``dev``, the launch's device checks too."""
+    if dev is not None:
+        if dev.type != "cuda":
+            raise ValueError(f"{symbol}: tensors must be on a CUDA device or the CPU, "
+                             f"got {dev}")
+        for name, t in args.items():
+            if t.device != dev:
+                raise ValueError(f"{symbol}: {name} is on {t.device}, expected {dev}")
     for name, shape in want.items():
         if tuple(args[name].shape) != shape:
             raise ValueError(f"{symbol}: {name} has shape {tuple(args[name].shape)}, "
@@ -88,39 +124,17 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def counter_stdp_update(w: torch.Tensor,
-                        pre_spike: torch.Tensor, post_spike: torch.Tensor,
-                        pre_words: torch.Tensor, post_words: torch.Tensor,
-                        lut: torch.Tensor,
-                        *,
-                        depth: int,
-                        window: str,
-                        a_plus: float,
-                        a_minus: float,
-                        tau_plus: float,
-                        tau_minus: float,
-                        eta: float = 1.0,
-                        w_min: float = 0.0,
-                        w_max: float = 1.0) -> torch.Tensor:
-    """Fused explicit-Δt STDP update from per-neuron counter words:
-    ``clip(w + eta·dw, w_min, w_max)`` with the per-pair window and the XOR
-    pair gate."""
-    kw = dict(depth=depth, window=window, a_plus=a_plus, a_minus=a_minus,
-              tau_plus=tau_plus, tau_minus=tau_minus, eta=eta, w_min=w_min,
-              w_max=w_max)
-    if w.device.type == "cpu":
-        return counter_stdp_update_ref(w, pre_spike, post_spike, pre_words, post_words,
-                                       lut=lut, **kw)
+_WINDOW_ARGS = ("int depth, str window, float a_plus, float a_minus, float tau_plus, "
+                "float tau_minus")
+
+
+def _cuda_update(w, pre_spike, post_spike, pre_words, post_words, lut, *, depth, window,
+                 a_plus, a_minus, tau_plus, tau_minus, eta, w_min, w_max):
     symbol = "counter_stdp_update"
-    if w.dtype != torch.float32:
-        raise TypeError(f"{symbol}: w must be float32, got {w.dtype}")
+    args, want = _update_operands(w, pre_spike, post_spike, pre_words, post_words, lut,
+                                  depth=depth)
+    _check(symbol, args, want, depth=depth, window=window, dev=w.device)
     lanes, (n_pre, n_post) = w.shape[:-2], w.shape[-2:]
-    args = {"pre_spike": pre_spike, "post_spike": post_spike, "pre_words": pre_words,
-            "post_words": post_words, "lut": lut}
-    want = {"pre_spike": (*lanes, n_pre), "post_spike": (*lanes, n_post),
-            "pre_words": (*lanes, n_pre), "post_words": (*lanes, n_post),
-            "lut": (2, depth)}
-    _check(symbol, w.device, args, want, depth=depth, window=window)
     w = w.contiguous()
     pre_spike = pre_spike.to(torch.float32).contiguous()
     post_spike = post_spike.to(torch.float32).contiguous()
@@ -139,35 +153,14 @@ def counter_stdp_update(w: torch.Tensor,
     return out
 
 
-def counter_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
-                       pre_words: torch.Tensor, post_words: torch.Tensor,
-                       lut: torch.Tensor,
-                       *,
-                       depth: int,
-                       window: str,
-                       a_plus: float,
-                       a_minus: float,
-                       tau_plus: float,
-                       tau_minus: float) -> torch.Tensor:
-    """Raw ``(K, C)`` conv delta from im2col spikes and counter words: the
-    window of each element's counter, then the pair-gated patch-row
-    contraction summed over the M rows."""
-    kw = dict(depth=depth, window=window, a_plus=a_plus, a_minus=a_minus,
-              tau_plus=tau_plus, tau_minus=tau_minus)
-    if pre_patches.device.type == "cpu":
-        return counter_conv_delta_ref(pre_patches, post_spikes, pre_words, post_words,
-                                      lut=lut, **kw)
+def _cuda_conv(pre_patches, post_spikes, pre_words, post_words, lut, *, depth, window,
+               a_plus, a_minus, tau_plus, tau_minus):
     symbol = "counter_conv_delta"
-    if pre_patches.dim() != 2 or post_spikes.dim() != 2:
-        raise ValueError(f"{symbol}: spikes must be (M, K) and (M, C), got "
-                         f"{tuple(pre_patches.shape)} and {tuple(post_spikes.shape)}")
-    (m, k), c = pre_patches.shape, post_spikes.shape[1]
-    args = {"post_spikes": post_spikes, "pre_words": pre_words, "post_words": post_words,
-            "lut": lut}
-    want = {"post_spikes": (m, c), "pre_words": (m, k), "post_words": (m, c),
-            "lut": (2, depth)}
-    _check(symbol, pre_patches.device, args, want, depth=depth, window=window)
+    args, want = _conv_operands(pre_patches, post_spikes, pre_words, post_words, lut,
+                                depth=depth)
     dev = pre_patches.device
+    _check(symbol, args, want, depth=depth, window=window, dev=dev)
+    (m, k), c = pre_patches.shape, post_spikes.shape[1]
     pre = pre_patches.to(torch.float32).contiguous()
     post = post_spikes.to(torch.float32).contiguous()
     pre_words, post_words = pre_words.contiguous(), post_words.contiguous()
@@ -185,6 +178,87 @@ def counter_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
     _raise_on(lib, symbol, rc)
     counter_conv_delta.launches += 1
     return out
+
+
+def _fake_update(w, pre_spike, post_spike, pre_words, post_words, lut, *, depth, window,
+                 **kw):
+    _check("counter_stdp_update", *_update_operands(w, pre_spike, post_spike, pre_words,
+                                                    post_words, lut, depth=depth),
+           depth=depth, window=window)
+    return w.new_empty(w.shape)
+
+
+def _fake_conv(pre_patches, post_spikes, pre_words, post_words, lut, *, depth, window,
+               **kw):
+    """The raw ``(K, C)`` float32 delta of ``(M, K)`` patches and ``(M, C)`` spikes."""
+    _check("counter_conv_delta", *_conv_operands(pre_patches, post_spikes, pre_words,
+                                                 post_words, lut, depth=depth),
+           depth=depth, window=window)
+    return pre_patches.new_empty((pre_patches.shape[1], post_spikes.shape[1]),
+                                 dtype=torch.float32)
+
+
+def _cpu_update(w, pre_spike, post_spike, pre_words, post_words, lut, **kw):
+    return counter_stdp_update_ref(w, pre_spike, post_spike, pre_words, post_words,
+                                   lut=lut, **kw).contiguous()
+
+
+def _cpu_conv(pre_patches, post_spikes, pre_words, post_words, lut, **kw):
+    return counter_conv_delta_ref(pre_patches, post_spikes, pre_words, post_words,
+                                  lut=lut, **kw).contiguous()
+
+
+_UPDATE = _ops.define(
+    "counter_stdp_update(Tensor w, Tensor pre_spike, Tensor post_spike, Tensor pre_words, "
+    f"Tensor post_words, Tensor lut, *, {_WINDOW_ARGS}, float eta, float w_min, "
+    "float w_max) -> Tensor",
+    cpu=_cpu_update, cuda=_cuda_update, fake=_fake_update)
+_CONV = _ops.define(
+    "counter_conv_delta(Tensor pre_patches, Tensor post_spikes, Tensor pre_words, "
+    f"Tensor post_words, Tensor lut, *, {_WINDOW_ARGS}) -> Tensor",
+    cpu=_cpu_conv, cuda=_cuda_conv, fake=_fake_conv)
+
+
+def counter_stdp_update(w: torch.Tensor,
+                        pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                        pre_words: torch.Tensor, post_words: torch.Tensor,
+                        lut: torch.Tensor,
+                        *,
+                        depth: int,
+                        window: str,
+                        a_plus: float,
+                        a_minus: float,
+                        tau_plus: float,
+                        tau_minus: float,
+                        eta: float = 1.0,
+                        w_min: float = 0.0,
+                        w_max: float = 1.0) -> torch.Tensor:
+    """Fused explicit-Δt STDP update from per-neuron counter words:
+    ``clip(w + eta·dw, w_min, w_max)`` with the per-pair window and the XOR
+    pair gate."""
+    _ops.check_device("counter_stdp_update", w)
+    return _UPDATE(w, pre_spike, post_spike, pre_words, post_words, lut, depth=depth,
+                   window=window, a_plus=a_plus, a_minus=a_minus, tau_plus=tau_plus,
+                   tau_minus=tau_minus, eta=eta, w_min=w_min, w_max=w_max)
+
+
+def counter_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
+                       pre_words: torch.Tensor, post_words: torch.Tensor,
+                       lut: torch.Tensor,
+                       *,
+                       depth: int,
+                       window: str,
+                       a_plus: float,
+                       a_minus: float,
+                       tau_plus: float,
+                       tau_minus: float) -> torch.Tensor:
+    """Raw ``(K, C)`` conv delta from im2col spikes and counter words: the
+    window of each element's counter, then the pair-gated patch-row
+    contraction summed over the M rows."""
+    _ops.check_device("counter_conv_delta", pre_patches)
+    return _CONV(pre_patches, post_spikes, pre_words, post_words, lut, depth=depth,
+                 window=window, a_plus=a_plus, a_minus=a_minus, tau_plus=tau_plus,
+                 tau_minus=tau_minus)
 
 
 counter_stdp_update.launches = 0

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from repro_torch.core.stdp import exp_decay, pair_gate, pwl_decay
+from repro_torch.device import eager
 from repro_torch.kernels.itp_stdp_conv.ref import gated_contraction
 
 
@@ -55,6 +56,7 @@ def window_linear(dt: torch.Tensor, amplitude: float, tau: float, depth: int) ->
 
 
 @functools.lru_cache(maxsize=64)
+@eager
 def window_lut(amplitude: float, tau: float, depth: int,
                device: torch.device | str | None = None) -> torch.Tensor:
     """The [23] LUT on the integer delay grid, one entry per valid delay

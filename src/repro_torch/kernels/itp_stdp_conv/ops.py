@@ -32,6 +32,7 @@ import functools
 import torch
 
 from repro_torch.core.stdp import STDPParams
+from repro_torch.device import eager
 from repro_torch.kernels.itp_stdp.ops import Po2Pair, po2_vectors
 from repro_torch.kernels.itp_stdp_conv.kernel import (itp_stdp_conv_delta,
                                                       itp_stdp_conv_delta_packed)
@@ -40,6 +41,7 @@ from repro_torch.kernels.itp_stdp_conv.ref import (itp_stdp_conv_delta_packed_re
 
 
 @functools.lru_cache(maxsize=64)
+@eager
 def _index_2d(h: int, w: int, c: int, k: int, stride: int,
               device: torch.device) -> torch.Tensor:
     ho = (h - k) // stride + 1
@@ -53,6 +55,7 @@ def _index_2d(h: int, w: int, c: int, k: int, stride: int,
 
 
 @functools.lru_cache(maxsize=64)
+@eager
 def _index_1d(length: int, c: int, k: int, stride: int,
               device: torch.device) -> torch.Tensor:
     lo = (length - k) // stride + 1

@@ -30,6 +30,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.stdp import STDPParams, pair_gate
+from repro_torch.device import eager
 from repro_torch.kernels.dispatch import (im2col_1d, im2col_2d, im2col_words_1d,
                                           im2col_words_2d)
 from repro_torch.kernels.itp_sparse.events import spike_events
@@ -276,6 +277,7 @@ def make_plan(cfg: Any, device: torch.device | str | None = None) -> UpdatePlan:
 
 
 @functools.lru_cache(maxsize=64)
+@eager
 def _plan(cfg: Any, rule: LearningRule, device: torch.device) -> UpdatePlan:
     use_kernel, interpret = resolve_rule_backend(rule, cfg.backend)
     if hasattr(cfg, "effective_compensate"):

@@ -190,6 +190,11 @@ class Server:
         self._running = False
         self.batches = 0
 
+    @property
+    def cfg(self) -> EngineConfig:
+        """The engine config the sessions run (the store's)."""
+        return self.store.cfg
+
     # -- submit / poll --------------------------------------------------
 
     def submit(self, req: Request) -> int:

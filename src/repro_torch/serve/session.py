@@ -109,6 +109,10 @@ class SessionStore:
         self._sessions[sid] = state
         self._sessions.move_to_end(sid)
 
+    def touch(self, sid: str) -> None:
+        """Mark ``sid`` most recently used without reading it."""
+        self._sessions.move_to_end(sid)
+
     def evict(self, sid: str | None = None) -> str:
         """Drop ``sid`` (default: the least-recently-used session)."""
         if sid is None:

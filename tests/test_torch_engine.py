@@ -178,3 +178,16 @@ def test_plan_reads_the_config():
     assert plan is plasticity.make_plan(cfg, "cpu")          # cached per (cfg, device)
     assert plan.po2[0].dtype == torch.float32 and plan.po2[0].shape == (5,)
     assert plasticity.resolve_rule_backend("itp", "reference") == (False, False)
+
+
+def test_prototype_is_4x4():
+    jcfg, jst = JE.prototype_engine(jax.random.PRNGKey(0))
+    cfg, st = TE.prototype_engine(np.array(jst.w), device="cpu")
+    assert (cfg.n_pre, cfg.n_post) == (jcfg.n_pre, jcfg.n_post) == (4, 4)
+    assert st.w.shape == (4, 4)
+    assert st.pre_hist.planes.shape == (7, 4) == jst.pre_hist.planes.shape
+    np.testing.assert_array_equal(st.w.numpy(), np.asarray(jst.w))
+    # the port's own init: drawn from the generator, as init_engine draws
+    _, a = TE.prototype_engine(generator=torch.Generator().manual_seed(3), device="cpu")
+    b = TE.init_engine(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    assert torch.equal(a.w, b.w)

@@ -1305,3 +1305,121 @@ def test_sharded_engine_on_nccl_equals_run_engine(cuda, tmp_path, rule, backend)
         dist.destroy_process_group()
     assert 0 < ref_post.float().mean() < 1
     assert torch.equal(torch.stack(posts), ref_post) and torch.equal(st.w, ref_st.w)
+
+
+# ---------------------------------------------------------------------------
+# the kernels as registered operators (kernels/_ops.py) and traced graphs
+# ---------------------------------------------------------------------------
+
+def _op_cases(device):
+    """name → (wrapper, plain version, args, kwargs, tolerance or None for
+    bit-equal) at small ragged shapes, the dense updates with two lanes."""
+    g = torch.Generator().manual_seed(21)
+
+    def spikes(*shape):
+        return (torch.rand(shape, generator=g) < 0.4).float().to(device)
+
+    def words(*shape, high=128):
+        return torch.randint(0, high, shape, generator=g, dtype=torch.uint8).to(device)
+
+    ltp, ltd = po2_vectors(STDPParams(), 7, device=device)
+    lut = counter_lut(STDPParams(), 7, device)
+    w = torch.rand((2, 40, 13), generator=g).to(device)
+    pre, post = spikes(2, 40), spikes(2, 13)
+    patches, out = spikes(300, 27), spikes(300, 6)
+    win = dict(depth=7, a_plus=1.0, a_minus=1.125, tau_plus=4.0, tau_minus=4.0)
+    clip = dict(eta=0.0625, w_min=0.0, w_max=1.0)
+    ints = [torch.randint(0, 1 << 12, (3, 77), generator=g, dtype=torch.int32).to(device)
+            for _ in range(2)]
+    v = (torch.randn((3, 77), generator=g) * 0.4 + 0.5).to(device)
+    i_in = (torch.randn((3, 77), generator=g) * 0.3 + 0.2).to(device)
+    x = (torch.randn((5, 61), generator=g) * 1e-2).to(device)
+    codes = torch.randint(0, 256, (5, 61), generator=g, dtype=torch.int32).to(device)
+    return {
+        "itp_stdp_update_packed": (K.itp_stdp_update_packed, R.itp_stdp_update_packed_ref,
+                                   (w, pre, post, words(2, 40), words(2, 13), ltp, ltd),
+                                   dict(depth=7, nearest=True, **clip), None),
+        "itp_stdp_update": (K.itp_stdp_update, R.itp_stdp_update_ref,
+                            (w, pre, post, spikes(2, 7, 40), spikes(2, 7, 13), ltp, ltd),
+                            dict(nearest=True, **clip), None),
+        "itp_stdp_conv_delta_packed": (
+            CK.itp_stdp_conv_delta_packed, CR.itp_stdp_conv_delta_packed_ref,
+            (patches, out, words(300, 27), words(300, 6), ltp, ltd),
+            dict(depth=7, nearest=True), CONV_TOL),
+        "itp_stdp_conv_delta": (CK.itp_stdp_conv_delta, CR.itp_stdp_conv_delta_ref,
+                                (patches, out, spikes(7, 300, 27), spikes(7, 300, 6), ltp,
+                                 ltd), dict(nearest=True), CONV_TOL),
+        "counter_stdp_update": (
+            NK.counter_stdp_update,
+            lambda *a, **kw: NR.counter_stdp_update_ref(*a[:5], lut=a[5], **kw),
+            (w, pre, post, words(2, 40, high=8), words(2, 13, high=8), lut),
+            dict(win, window="exact", **clip), WINDOW_TOL),
+        "counter_conv_delta": (
+            NK.counter_conv_delta,
+            lambda *a, **kw: NR.counter_conv_delta_ref(*a[:4], lut=a[4], **kw),
+            (patches, out, words(300, 27, high=8), words(300, 6, high=8), lut),
+            dict(win, window="exact"), CONV_TOL),
+        "lif_update": (LK.lif_update, lif_update_ref, (v, i_in),
+                       dict(alpha=0.9, e_rest=0.0, v_th=1.0), None),
+        "llsmu_multiply": (MK.llsmu_multiply, llsmu_multiply_ref, tuple(ints),
+                           dict(n_bits=4, frac_bits=12, c=0.08333), None),
+        "po2_encode": (PK.po2_encode, PR.po2_encode_ref, (x,), {}, None),
+        "po2_decode": (PK.po2_decode, PR.po2_decode_ref, (codes,), {}, None),
+    }
+
+
+OP_NAMES = ("itp_stdp_update_packed", "itp_stdp_update", "itp_stdp_conv_delta_packed",
+            "itp_stdp_conv_delta", "counter_stdp_update", "counter_conv_delta", "lif_update",
+            "llsmu_multiply", "po2_encode", "po2_decode")
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_registered_op_on_card_equals_plain_and_counts_one_launch(cuda, name):
+    wrapper, plain, args, kwargs, tol = _op_cases(cuda)[name]
+    op = getattr(torch.ops.repro_torch, name)
+    want = plain(*args, **kwargs)
+    wrapper.launches = 0
+    got = op(*args, **kwargs)
+    assert wrapper.launches == 1
+    got_w = wrapper(*args, **kwargs)
+    assert wrapper.launches == 2
+    for a, b, c in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, got_w, want))):
+        assert a.device.type == "cuda" and a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        if tol is None:
+            assert torch.equal(a, c)
+        else:
+            torch.testing.assert_close(a, c, **tol)
+
+
+@pytest.mark.parametrize("rule,kind", (("itp", "engine"), ("exact", "engine"),
+                                       ("itp", "fc"), ("itp", "conv2d"),
+                                       ("mstdp", "conv1d")))
+def test_traced_fused_cell_runs_on_card_bit_equal_to_eager(cuda, rule, kind):
+    """A fused cell's step traced on fake CUDA tensors (the graph audit's
+    trace), then run on the card for 8 steps: each step bit-equal to the eager
+    step, with the eager step's kernel launches."""
+    from torch.utils._pytree import tree_leaves as leaves
+
+    from repro_torch.analysis.graph_audit import cell_program, kernel_ops, trace
+
+    state, spikes, step = cell_program(rule, "fused", kind, device=cuda)
+    gm = trace(step, state, spikes)
+    (qualified, n), = kernel_ops(gm).items()
+    wrapper = {"repro_torch::itp_stdp_update_packed": K.itp_stdp_update_packed,
+               "repro_torch::itp_stdp_update": K.itp_stdp_update,
+               "repro_torch::itp_stdp_conv_delta_packed": CK.itp_stdp_conv_delta_packed,
+               "repro_torch::itp_stdp_conv_delta": CK.itp_stdp_conv_delta,
+               "repro_torch::counter_stdp_update": NK.counter_stdp_update,
+               "repro_torch::counter_conv_delta": NK.counter_conv_delta}[qualified]
+    g = torch.Generator().manual_seed(8)
+    eager, graph = state, state
+    for _ in range(8):
+        x = (torch.rand(spikes.shape, generator=g) < 0.3).float().to(cuda)
+        wrapper.launches = 0
+        eager, out_e = step(eager, x)
+        launched = wrapper.launches
+        graph, out_g = gm(graph, x)
+        assert launched == wrapper.launches - launched == n == 1
+        for a, b in zip(leaves((eager, out_e)), leaves((graph, out_g))):
+            assert torch.equal(a, b)

@@ -9,8 +9,8 @@ and the trainer run; and ``tests/test_apply.py``'s third-party rules
 ``Rank1Rule``, on their declared backends, the undeclared ones refused at
 config construction with the reference's messages.  Beyond the reference's
 tests: the three nets, serving at 2 B/neuron, the launchers, and the state
-carried across by ``repro_torch.convert``.  Left out: the sharded crossing
-(ROADMAP queue 1 item 15).
+carried across by ``repro_torch.convert``.  The sharded crossing is
+``tests/test_torch_sharded.py::test_mstdp_sharded_engine_single_device``.
 
 The same numpy-made weights and rasters go to both packages.  Spikes, history
 words and eligibility words are held exactly; weights at rtol=1e-5,

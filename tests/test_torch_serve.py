@@ -201,3 +201,27 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 32/32 requests" in out and "rule=mstdp" in out
     assert "plasticity cache: 160 B/session" in out          # 2 B × (64 + 16)
+
+
+def test_lru_eviction_and_capacity():
+    jstore = J.SessionStore(JEngineConfig(n_pre=N_PRE, n_post=N_POST), capacity=2)
+    store = T.SessionStore(TEngineConfig(n_pre=N_PRE, n_post=N_POST), capacity=2,
+                           device="cpu")
+    for s in (jstore, store):
+        s.init("a")
+        s.init("b")
+        s.get("a")                       # refresh: b is now LRU
+        s.init("c")                      # evicts b
+        assert s.session_ids == ("a", "c")
+        assert "b" not in s and len(s) == 2
+        s.touch("a")                     # c is now LRU, a not read
+        assert s.evict() == "c"
+    assert store.session_ids == jstore.session_ids == ("a",)
+
+
+def test_server_cfg_is_the_store_cfg():
+    cfg = TEngineConfig(n_pre=N_PRE, n_post=N_POST, backend="fused")
+    server = T.Server(cfg, T.ServeConfig(max_batch=2, t_steps=4), device="cpu")
+    assert server.cfg is server.store.cfg is cfg
+    jcfg = JEngineConfig(n_pre=N_PRE, n_post=N_POST)
+    assert J.Server(jcfg, J.ServeConfig(max_batch=2, t_steps=4)).cfg is jcfg

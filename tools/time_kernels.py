@@ -42,11 +42,21 @@ shape in one run of ``chip_smoke.py`` (``LAUNCHES``: serving's 4 batches ×
 training runs; the matrix phase's cells, at the audit's tiny shapes, are
 left out).
 
+``--host`` times the host instead: each wrapper's host µs per call (least
+of 9 windows of 1,000 calls, no sync), kernels 1, 2 and 5 (each window) at
+serving's 8 × 784 × 100, kernels 3, 4 and 6 (each window) at DCSNN conv1
+and the side wrappers at 16 × 6,912 elements; then, in the same process,
+the serving load of ``chip_smoke.py`` (784 × 100, ``itp``/``fused``, 8
+sessions, 32 requests, after a warm-up) in requests/s and
+``launch.train --engine`` at its defaults (``itp``/``fused``) in SOP/s,
+three runs each; and one trivial function's host µs per call, plain, as a
+``torch.library.Library`` operator and as a ``torch.library.custom_op``.
+
 ``--src DIR`` imports ``repro_torch`` from another checkout's ``src`` (an
 unpacked parent commit, say), so two versions of the kernels are compared
 in one process on one card.  Run from the repository root:
 
-    python3 tools/time_kernels.py [--src DIR] [--label NAME]
+    python3 tools/time_kernels.py [--src DIR] [--label NAME] [--side | --host]
 
 It prints one line per case and, last, one JSON object with every case.
 """
@@ -95,6 +105,11 @@ LAUNCHES = {
     "po2_decode": {"embedding": 3},
 }
 SIDE_LARGE = 1 << 24                    # elements: bytes, not the launch, set the time
+# qwen3-0.6b's tied embedding (vocab × d_model, repro_torch.configs), where
+# chip_smoke.py times kernels 9-10; a literal, since --src may name a
+# checkout whose port has no configs
+EMBEDDING = (151_936, 1_024)
+HOST_RUNS = 3                           # runs of the serving and engine rates
 # a kernel with an empty body: its device time is the card's fixed cost of
 # one kernel at a given grid
 NOOP_SOURCE = r"""
@@ -149,7 +164,7 @@ def _side_cases(device):
     kw = dict(alpha=p.alpha, e_rest=p.e_rest, v_th=p.v_th)
     gen = torch.Generator(device=device).manual_seed(7)
     pop = S.LIF_POPULATION[0] * S.LIF_POPULATION[1]
-    emb = (S.QWEN3["vocab"], S.QWEN3["d_model"])
+    emb = EMBEDDING
     cases = {}
     for case, n, po2_shape in (("smoke", pop, emb), ("2^24", SIDE_LARGE, (SIDE_LARGE,))):
         v = torch.rand((n,), generator=gen, device=device) * 1.7 - 0.5
@@ -221,6 +236,108 @@ def _host_cases(device):
     return calls
 
 
+def _update_host_cases(device):
+    """Kernels 1-6 at their main shapes (1, 2, 5 at serving's 8 × 784 × 100;
+    3, 4, 6 at DCSNN conv1): name → call."""
+    import torch
+
+    from repro_torch.core.history import pack_bitplanes
+    from repro_torch.core.stdp import STDPParams
+    from repro_torch.kernels.itp_counter import kernel as NK
+    from repro_torch.kernels.itp_counter.ops import counter_lut
+    from repro_torch.kernels.itp_stdp import kernel as K
+    from repro_torch.kernels.itp_stdp.ops import po2_vectors
+    from repro_torch.kernels.itp_stdp_conv import kernel as CK
+
+    p = STDPParams()
+    po2 = po2_vectors(p, DEPTH, device=device)
+    lut = counter_lut(p, DEPTH, device)
+    lanes, n_pre, n_post = SHAPES["serving"]
+    gen = torch.Generator().manual_seed(9)
+    w, pre_s, post_s, pre_wd, post_wd, pre_b, post_b = S._inputs(
+        lanes, n_pre, n_post, DEPTH, gen, device)
+    pre_t, post_t = (torch.randint(0, DEPTH + 1, (lanes, n), generator=gen)
+                     .to(torch.uint8).to(device) for n in (n_pre, n_post))
+    m, k, c = S.CONV_CASES["DCSNN conv1"]
+    patches = (torch.rand((m, k), generator=gen) < 0.3).float().to(device)
+    out = (torch.rand((m, c), generator=gen) < 0.25).float().to(device)
+    planes_pre = (torch.rand((DEPTH, m, k), generator=gen) < 0.3).float().to(device)
+    planes_post = (torch.rand((DEPTH, m, c), generator=gen) < 0.25).float().to(device)
+    words_pre, words_post = pack_bitplanes(planes_pre), pack_bitplanes(planes_post)
+    conv_t = [torch.randint(0, DEPTH + 1, shape, generator=gen).to(torch.uint8).to(device)
+              for shape in ((m, k), (m, c))]
+    kw = dict(nearest=True, eta=1.0 / 16.0, w_min=0.0, w_max=1.0)
+    calls = {
+        "itp_stdp_update_packed": lambda: K.itp_stdp_update_packed(
+            w, pre_s, post_s, pre_wd, post_wd, *po2, depth=DEPTH, **kw),
+        "itp_stdp_update": lambda: K.itp_stdp_update(w, pre_s, post_s, pre_b, post_b, *po2,
+                                                     **kw),
+        "itp_stdp_conv_delta_packed": lambda: CK.itp_stdp_conv_delta_packed(
+            patches, out, words_pre, words_post, *po2, depth=DEPTH),
+        "itp_stdp_conv_delta": lambda: CK.itp_stdp_conv_delta(
+            patches, out, planes_pre, planes_post, *po2),
+    }
+    for window in S.COUNTER_WINDOWS:
+        wkw = dict(depth=DEPTH, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                   tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+        calls[f"counter_stdp_update[{window}]"] = (
+            lambda wkw=wkw: NK.counter_stdp_update(w, pre_s, post_s, pre_t, post_t, lut,
+                                                   eta=1.0 / 16.0, w_min=0.0, w_max=1.0,
+                                                   **wkw))
+        calls[f"counter_conv_delta[{window}]"] = (
+            lambda wkw=wkw: NK.counter_conv_delta(patches, out, *conv_t, lut, **wkw))
+    return calls
+
+
+def _probe(x):
+    import torch
+
+    return torch.empty_like(x)
+
+
+def _registration_costs(device) -> dict:
+    """Host µs per call of one trivial function (``torch.empty_like`` of a
+    16-element tensor) called plainly, as an operator defined through
+    ``torch.library.Library`` (``define`` + ``impl``, the port's way) and as
+    a ``torch.library.custom_op``."""
+    import torch
+
+    x = torch.zeros(16, device=device)
+    lib = torch.library.Library("time_kernels_probe", "FRAGMENT")
+    lib.define("by_library(Tensor x) -> Tensor")
+    lib.impl("by_library", _probe, "CUDA")
+    custom = torch.library.custom_op("time_kernels_probe::by_custom_op", _probe,
+                                     mutates_args=(), device_types="cuda",
+                                     schema="(Tensor x) -> Tensor")
+    calls = {"plain function": lambda: _probe(x),
+             "Library.impl op": lambda: torch.ops.time_kernels_probe.by_library(x),
+             "custom_op": lambda: custom(x)}
+    return {name: S._host_us(call) for name, call in calls.items()}
+
+
+def _host_rates(device) -> dict:
+    """The serving load's requests/s and ``launch.train --engine``'s SOP/s
+    (``itp``/``fused``), HOST_RUNS runs each after a warm-up."""
+    import torch
+
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.launch.serve import synthetic_load
+    from repro_torch.launch.train import build_parser, engine_training
+    from repro_torch.serve import ServeConfig
+
+    scfg = ServeConfig(**S.SERVE_SCFG)
+    cfg = EngineConfig(**S.SERVE_CFG, backend="fused", packed_history=True)
+    load = synthetic_load(torch.Generator().manual_seed(1), t_steps=scfg.t_steps,
+                          n_pre=cfg.n_pre, **S.SERVE_LOAD)
+    S._serve(cfg, scfg, load[:scfg.max_batch], device, threaded=False)
+    serve = [len(load) / S._serve(cfg, scfg, load, device, threaded=True)[2]
+             for _ in range(HOST_RUNS)]
+    args = build_parser().parse_args(["--engine", "--rule", "itp", "--backend", "fused",
+                                      "--device", str(device)])
+    engine = [engine_training(args)[0]["sops_per_s"] for _ in range(HOST_RUNS)]
+    return {"serve_requests_per_s": serve, "engine_sops_per_s": engine}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -228,6 +345,9 @@ def main() -> int:
     ap.add_argument("--label", default="", help="a name printed with every line")
     ap.add_argument("--side", action="store_true",
                     help="time the side kernels (7-10) and the empty kernel alone")
+    ap.add_argument("--host", action="store_true",
+                    help="time each wrapper's host us per call and the serving and "
+                         "--engine rates alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -251,6 +371,8 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     label = args.label or str(Path(repro_torch.__file__).resolve().parents[1])
     print(f"[{label}] {smi}; repro_torch from {Path(repro_torch.__file__).parent}", flush=True)
+    if args.host:
+        return _host_main(device, label, smi)
     p = STDPParams()
     po2 = po2_vectors(p, DEPTH, device=device)
     lut = counter_lut(p, DEPTH, device)
@@ -405,6 +527,28 @@ def main() -> int:
         print(f"[{label}] rank: {name}: {sum(LAUNCHES[name].values())} launches, "
               f"launches x (device - bound) = {lost:.3f} ms per chip_smoke run", flush=True)
     print(json.dumps({"label": label, "card": smi, "cases": results, "ranking": ranking}))
+    return 0
+
+
+def _host_main(device, label: str, smi: str) -> int:
+    """``--host``: each wrapper's host µs per call, then the serving and
+    engine rates, in one process."""
+    results = {}
+    for name, call in {**_update_host_cases(device), **_host_cases(device)}.items():
+        us = S._host_us(call)
+        results[name] = us
+        print(f"[{label}] host {name}: {us:.3f} us per call (least of 9 windows of 1,000 "
+              f"calls, no sync)", flush=True)
+    registration = _registration_costs(device)
+    for name, us in registration.items():
+        print(f"[{label}] registration probe, {name}: {us:.3f} us per call", flush=True)
+    rates = _host_rates(device)
+    print(f"[{label}] serving 784x100 itp/fused: requests/s "
+          f"{', '.join(f'{r:.2f}' for r in rates['serve_requests_per_s'])}; --engine "
+          f"itp/fused SOP/s {', '.join(f'{r:.4e}' for r in rates['engine_sops_per_s'])}",
+          flush=True)
+    print(json.dumps({"label": label, "card": smi, "host_us": results,
+                      "registration_us": registration, **rates}))
     return 0
 
 

@@ -138,7 +138,29 @@ printed on lines of its own:
              ``itp`` on ``sparse``, each == the unsharded ``run_engine``
              (spikes, w and v bitwise), one kernel launch a step on fused, the
              sharded step's wall ms beside the unsharded one's;
-15. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+15. lm      — the LM stack's forward and decode (ROADMAP item 18b; no
+             kernel of its own: its products are torch matmuls, as the
+             reference's are XLA dots outside any Pallas kernel): the ten smoke
+             configs at float32, ``forward`` (logits, aux losses) and 8
+             ``decode_step``s (logits, caches) on the card against the port on
+             the CPU within the LM float32 clause (rtol=1e-4, atol=1e-5; the
+             SSM family rtol=atol=2e-3), the MoE configs bit-equal on two CUDA
+             runs; qwen3-0.6b at full width and depth (596,049,920 float32
+             parameters from the port's seeded ``init_model``): float32
+             teacher-forced decode ≡ ``forward`` at B=2, S=64 within 1e-3 of
+             the largest logit, its 2-layer cut on the card ≡ the CPU at B=2,
+             S=128, bfloat16 prefill at B=4 × S=4,096 (``last_logits_only``,
+             the blockwise path's four query blocks), 32 bfloat16 decode steps
+             at B=8 on a 4,096-slot bfloat16 cache and on an int8 one (relative
+             RMSE < 0.05), tokens/s, peak memory, the weight casts' cost and
+             one profiled decode step's device-busy share; mamba2-1.3b at full
+             width and depth (1,343,740,928): bfloat16 prefill at B=2 ×
+             S=4,096 and 32 decode steps, timed, and float32 teacher-forced
+             decode ≡ ``forward`` at B=1, S=256 within rtol=atol=2e-3; one
+             qwen2-moe-a2.7b MoE layer at full width (60 experts padded to 64,
+             d 2,048): bfloat16 at B=4 × S=4,096 bit-equal over two runs,
+             timed, float32 at B=1 × S=256 on the card ≡ the CPU;
+16. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving, the fc
    layers of the training runs and phases 12-14, its times at the shape
    where most of them fall; the matrix and audit phases' launches added), the
@@ -253,6 +275,27 @@ PAPER_HISTORY_DEPTH = 7
 QWEN3 = "qwen3-0.6b"                    # its widths: the port's config (repro_torch.configs)
 QWEN3_LAYERS = 2                        # of 28: a cut that bounds chip time
 ADAMW_STEPS = 3
+# the LM phase: the float32 parity clause (ROADMAP ground rules; the SSM
+# family at the reference's own ssd tolerance), the loads at full width
+# (batch, sequence) and their expected parameter counts
+LM_TOL = dict(rtol=1e-4, atol=1e-5)
+LM_SSM_TOL = dict(rtol=2e-3, atol=2e-3)
+LM_SMOKE = dict(batch=2, seq=16, steps=8)
+LM_PERTURBED = ("scale", "bias", "bq", "bk", "bv", "q_norm", "k_norm", "gate_attn", "conv_b",
+                "d_skip", "dt_bias", "norm_scale", "up_bias", "down_bias")
+LM_DENSE, LM_SSM, LM_MOE = "qwen3-0.6b", "mamba2-1.3b", "qwen2-moe-a2.7b"
+LM_PARAMS = {LM_DENSE: 596_049_920, LM_SSM: 1_343_740_928}
+LM_DECODE_CHECK = (2, 64)               # float32 teacher-forced decode ≡ forward
+LM_DECODE_REL = 1e-3                    # × the largest |logit|
+LM_CUT = (2, 2, 128)                    # layers, batch, seq: the card ≡ the CPU
+LM_PREFILL = (4, 4096)                  # the train_4k sequence: four query blocks
+LM_DECODE = dict(batch=8, max_t=4096, steps=32)
+LM_INT8_RMSE = 0.05                     # test_models.py:249
+SSM_PREFILL = (2, 4096)                 # 16 SSD chunks of 256
+SSM_DECODE_STEPS = 32
+SSM_DECODE_CHECK = (1, 256)
+MOE_LOAD = (4, 4096)
+MOE_CHECK = (1, 256)
 DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
 DRIFT_RMSE_TOL = 5e-4
 # bytes per element, inputs read once and outputs written once: kernel 7 reads
@@ -468,9 +511,10 @@ def _profile_batch(cfg, scfg, load, device) -> None:
                     f"one batch of {len(load)} requests x {scfg.t_steps} steps")
 
 
-def _report_profile(prof, seconds: float, what: str) -> None:
+def _report_profile(prof, seconds: float, what: str) -> float | None:
     """Print the wall time, the device-busy share and the eight device
-    kernels that take the most time of one profiled run.  Only the device's
+    kernels that take the most time of one profiled run; return the busy
+    share (None if the trace holds no device events).  Only the device's
     own events (kernels, copies, memsets) count: a host op's row repeats
     the device time of the kernels it launched."""
     import torch
@@ -489,6 +533,7 @@ def _report_profile(prof, seconds: float, what: str) -> None:
     _phase("profile", f"{what}: wall {seconds * 1e3:.3f} ms (profiled), device busy {busy}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         _phase("profile", f"  {dev_us / 1e3:9.4f} ms device, {count:5d} calls: {key[:90]}")
+    return busy_us / 1e6 / seconds if rows else None
 
 
 def _states(server):
@@ -886,23 +931,17 @@ def _ratio_line(what: str, counter: dict, itp: dict) -> None:
 
 
 def _qwen3_shapes(layers: int) -> dict:
-    """The parameter tree of qwen3-0.6b with ``layers`` stacked blocks, its
-    widths read from the port's config (``repro_torch.configs``), leaf
-    shapes as the JAX package's ``models/transformer.py:107 init_model``
-    builds them: the embedding (``layers.py:133``, tied, so no output
-    matrix), the final RMS norm, and per block two norms, attention
-    (``attention.py:25``: wq, wk, wv, wo, q/k norms) and the SwiGLU MLP
-    (``layers.py:99``: gate, up, down)."""
-    from repro_torch.configs import get_config
+    """The parameter tree of qwen3-0.6b with ``layers`` stacked blocks, as
+    leaf shapes: the port's ``init_model`` on the meta device (no storage,
+    no draws), its widths from the port's config (``repro_torch.configs``)."""
+    import dataclasses
 
-    cfg = get_config(QWEN3)
-    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    q, kv, n = cfg.n_heads * hd, cfg.n_kv_heads * hd, layers
-    return {"embed": {"tok": (cfg.vocab_size, d)}, "final_norm": {"scale": (d,)},
-            "blocks": {"norm1": {"scale": (n, d)}, "norm2": {"scale": (n, d)},
-                       "attn": {"wq": (n, d, q), "wk": (n, d, kv), "wv": (n, d, kv),
-                                "wo": (n, q, d), "q_norm": (n, hd), "k_norm": (n, hd)},
-                       "mlp": {"gate": (n, d, ff), "up": (n, d, ff), "down": (n, ff, d)}}}
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(QWEN3), n_layers=layers)
+    return tree_map(lambda a: tuple(a.shape), init_model(None, cfg, device="meta"))
 
 
 def _fill(shapes: dict, make) -> dict:
@@ -2064,6 +2103,373 @@ def phase_sharded(device) -> dict:
     return out
 
 
+def _lm_close(what: str, got, want, tol: dict) -> float:
+    """Hold ``got`` against ``want`` (any devices) within ``tol``, as
+    ``assert_allclose`` does; the largest absolute difference."""
+    import torch
+
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    if g.shape != w.shape:
+        raise SystemExit(f"lm: {what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if not torch.allclose(g, w, **tol):
+        raise SystemExit(f"lm: {what} differs: max|err| {err:.3g} beyond {tol}")
+    return err
+
+
+def _lm_leaves(x) -> list:
+    """The tensors of a decode cache (nested named tuples), Nones left out."""
+    if x is None:
+        return []
+    if isinstance(x, tuple):
+        return [leaf for kid in x for leaf in _lm_leaves(kid)]
+    return [x]
+
+
+def _lm_perturbed(node: dict, gen) -> dict:
+    """Every bias, norm scale, gate and SSM vector drawn away from its init
+    (zeros and ones would hide them)."""
+    import torch
+
+    return {k: _lm_perturbed(v, gen) if isinstance(v, dict) else
+            v + 0.3 * torch.randn(v.shape, generator=gen) if k in LM_PERTURBED else v
+            for k, v in node.items()}
+
+
+def _lm_walls(fn, reps: int = 3) -> list[float]:
+    """Host seconds of ``reps`` synchronised calls of ``fn`` after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def _lm_profile(fn, what: str) -> float | None:
+    """One profiled, synchronised call of ``fn``: its wall, busy share and
+    top device kernels (``_report_profile``); returns the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return _report_profile(prof, seconds, what)
+
+
+def _lm_run(cfg, params, toks, vis, device, steps: int) -> list:
+    """``forward`` then ``steps`` teacher-forced ``decode_step``s on a float32
+    cache: [logits, aux losses, decode logits, every cache leaf]."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, forward, init_decode_cache
+
+    kw = {} if vis is None else {"vis_embed": vis}
+    logits, aux = forward(params, cfg, tokens=toks, **kw)
+    cache = init_decode_cache(cfg, toks.shape[0], steps, torch.float32, device=device)
+    dec = []
+    for t in range(steps):
+        d, cache = decode_step(params, cfg, cache, t, tokens=toks[:, t:t + 1], **kw)
+        dec.append(d)
+    return [logits, aux["moe_aux"], aux["moe_z"], torch.cat(dec, 1)] + _lm_leaves(cache)
+
+
+def _lm_families(device, cpu) -> dict:
+    """The ten smoke configs at float32: the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_map
+
+    B, S, steps = LM_SMOKE["batch"], LM_SMOKE["seq"], LM_SMOKE["steps"]
+    out = {}
+    for i, arch in enumerate(ARCH_NAMES):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        gen = torch.Generator().manual_seed(40 + i)
+        params = _lm_perturbed(init_model(gen, cfg, device=cpu), gen)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+        vis = (torch.randn((B, 8, cfg.vis_dim), generator=gen) * 0.5
+               if cfg.family == "vlm" else None)
+        card = tree_map(lambda a: a.to(device), params)
+        on_card = (cfg, card, toks.to(device), None if vis is None else vis.to(device), device,
+                   steps)
+        got = _lm_run(*on_card)
+        want = _lm_run(cfg, params, toks, vis, cpu, steps)
+        tol = LM_SSM_TOL if cfg.family == "ssm" else LM_TOL
+        if len(got) != len(want):
+            raise SystemExit(f"lm: {arch}: {len(got)} outputs on the card, {len(want)} on the CPU")
+        err = max(_lm_close(f"{arch} output {j}", g, w, tol)
+                  for j, (g, w) in enumerate(zip(got, want)))
+        twice = ""
+        if cfg.is_moe:
+            same = all(torch.equal(a, b) for a, b in zip(got, _lm_run(*on_card)))
+            twice = f"; two card runs bit-equal {same}"
+            if not same:
+                raise SystemExit(f"lm: {arch}: two CUDA runs differ")
+        _phase("lm", f"{arch} smoke (float32, B={B}, S={S}, {steps} decode steps): card == "
+               f"CPU within {tol}, max|err| {err:.3g} over {len(got)} outputs (logits, two aux "
+               f"losses, decode logits, {len(got) - 4} cache leaves){twice}")
+        out[arch] = err
+    return out
+
+
+def _lm_dense(device, cpu, smi: str) -> dict:
+    """qwen3-0.6b at full width and depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import decode_step, forward, init_decode_cache, init_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(LM_DENSE)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(50)
+    params = init_model(gen, cfg, device=device)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    if n_params != LM_PARAMS[LM_DENSE]:
+        raise SystemExit(f"lm: {LM_DENSE} has {n_params} parameters")
+    out = {"params": n_params}
+
+    B, S = LM_DECODE_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    fwd, _ = forward(params, f32, tokens=toks)
+    cache = init_decode_cache(f32, B, S, torch.float32, device=device)
+    dec = []
+    for t in range(S):
+        d, cache = decode_step(params, f32, cache, t, tokens=toks[:, t:t + 1])
+        dec.append(d)
+    gap = (torch.cat(dec, 1) - fwd).abs().max().item()
+    scale = fwd.abs().max().item()
+    _phase("lm", f"{LM_DENSE} ({n_params} float32 parameters, {cfg.n_layers} layers, d "
+           f"{cfg.d_model}): float32 teacher-forced decode vs forward at B={B}, S={S}: "
+           f"max|dlogit| {gap:.3g} against {LM_DECODE_REL} x max|logit| {scale:.4g}")
+    if not gap <= LM_DECODE_REL * scale:
+        raise SystemExit(f"lm: {LM_DENSE} decode differs from forward by {gap}")
+    del cache, dec, fwd
+
+    layers, B, S = LM_CUT
+    cut_cfg = dataclasses.replace(f32, n_layers=layers)
+    cut = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "blocks": tree_map(lambda a: a[:layers], params["blocks"])}
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    got, _ = forward(cut, cut_cfg, tokens=toks)
+    want, _ = forward(tree_map(lambda a: a.to(cpu), cut), cut_cfg, tokens=toks.to(cpu))
+    err = _lm_close(f"{LM_DENSE} {layers}-layer cut", got, want, LM_TOL)
+    _phase("lm", f"{LM_DENSE} cut to {layers} layers, float32 forward at B={B}, S={S}: card == "
+           f"CPU within {LM_TOL}, max|err| {err:.3g} (max|logit| {want.abs().max().item():.4g})")
+    del got, want
+
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    walls = _lm_walls(lambda: forward(params, cfg, tokens=toks, last_logits_only=True))
+    prefill_s = statistics.median(walls)
+    out.update(prefill_tok_s=B * S / prefill_s, prefill_ms=prefill_s * 1e3,
+               prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _phase("lm", f"{LM_DENSE} bfloat16 prefill B={B} x S={S} (last_logits_only, blockwise "
+           f"attention, {S // 1024} query blocks): {out['prefill_ms']:.2f} ms, "
+           f"{out['prefill_tok_s']:.1f} tokens/s (median of {len(walls)}: "
+           f"{[round(w * 1e3, 2) for w in walls]} ms), peak {out['prefill_peak_gb']:.3f} GB "
+           f"allocated [{smi}]")
+    out["prefill_busy"] = _lm_profile(
+        lambda: forward(params, cfg, tokens=toks, last_logits_only=True),
+        f"one {LM_DENSE} bfloat16 prefill ({B} x {S})")
+
+    # the float32 master weights cast to bfloat16: once per step for each
+    # leaf, as the reference casts them (``p[...].astype(dt)``)
+    out["cast_ms"] = _time_ms(lambda: [a.to(torch.bfloat16) for a in tree_leaves(params)],
+                              reps=5, inner=3)
+    out["embed_cast_ms"] = _time_ms(lambda: params["embed"]["tok"].to(torch.bfloat16),
+                                    reps=10, inner=5)
+    _phase("lm", f"{LM_DENSE} weight casts float32 -> bfloat16: every leaf {out['cast_ms']:.4f} "
+           f"ms, the {tuple(params['embed']['tok'].shape)} table alone "
+           f"{out['embed_cast_ms']:.4f} ms (CUDA events) [{smi}]")
+
+    B, T, steps = LM_DECODE["batch"], LM_DECODE["max_t"], LM_DECODE["steps"]
+    toks = torch.randint(0, cfg.vocab_size, (B, steps + 1), generator=gen, device=device)
+    finals = {}
+    for kv in (torch.bfloat16, torch.int8):
+        warm = init_decode_cache(cfg, B, T, kv, device=device)
+        for t in range(2):
+            decode_step(params, cfg, warm, t, tokens=toks[:, t:t + 1])
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cache = init_decode_cache(cfg, B, T, kv, device=device)
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, cache = decode_step(params, cfg, cache, t, tokens=toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = str(kv).replace("torch.", "")
+        finals[name] = logits.float()
+        out[f"decode_{name}"] = {"tok_s": B * steps / wall, "step_ms": wall / steps * 1e3,
+                                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        r = out[f"decode_{name}"]
+        _phase("lm", f"{LM_DENSE} bfloat16 decode B={B}, {steps} steps on a {T}-slot {name} "
+               f"cache: {r['step_ms']:.3f} ms a step, {r['tok_s']:.1f} tokens/s, peak "
+               f"{r['peak_gb']:.3f} GB allocated [{smi}]")
+        if kv == torch.bfloat16:
+            out["decode_busy"] = _lm_profile(
+                lambda: decode_step(params, cfg, cache, steps, tokens=toks[:, steps:]),
+                f"one {LM_DENSE} bfloat16 decode step (B={B}, {T}-slot cache)")
+        del cache
+    a, b = finals["bfloat16"], finals["int8"]
+    rmse = ((a - b).square().mean().sqrt() / a.square().mean().sqrt()).item()
+    out["int8_rmse"] = rmse
+    _phase("lm", f"{LM_DENSE} int8 against bfloat16 cache after {steps} steps: relative RMSE "
+           f"{rmse:.5f} (bound {LM_INT8_RMSE}); logits finite {bool(a.isfinite().all())}")
+    if not (rmse < LM_INT8_RMSE and a.isfinite().all() and b.isfinite().all()):
+        raise SystemExit(f"lm: {LM_DENSE} int8 decode: relative RMSE {rmse}")
+    return out
+
+
+def _lm_ssm(device, smi: str) -> dict:
+    """mamba2-1.3b at full width and depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import decode_step, forward, init_decode_cache, init_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_SSM)
+    gen = torch.Generator(device=device).manual_seed(60)
+    params = init_model(gen, cfg, device=device)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    if n_params != LM_PARAMS[LM_SSM]:
+        raise SystemExit(f"lm: {LM_SSM} has {n_params} parameters")
+    out = {"params": n_params}
+
+    B, S = SSM_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    walls = _lm_walls(lambda: forward(params, cfg, tokens=toks, last_logits_only=True))
+    prefill_s = statistics.median(walls)
+    out.update(prefill_tok_s=B * S / prefill_s, prefill_ms=prefill_s * 1e3,
+               prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _phase("lm", f"{LM_SSM} ({n_params} float32 parameters, {cfg.n_layers} layers, d "
+           f"{cfg.d_model}) bfloat16 prefill B={B} x S={S} ({S // cfg.ssd_chunk} SSD chunks, "
+           f"last_logits_only): {out['prefill_ms']:.2f} ms, {out['prefill_tok_s']:.1f} tokens/s "
+           f"(median of {len(walls)}), peak {out['prefill_peak_gb']:.3f} GB allocated [{smi}]")
+    out["prefill_busy"] = _lm_profile(
+        lambda: forward(params, cfg, tokens=toks, last_logits_only=True),
+        f"one {LM_SSM} bfloat16 prefill ({B} x {S})")
+
+    steps = SSM_DECODE_STEPS
+    warm = init_decode_cache(cfg, B, steps, device=device)
+    for t in range(2):
+        decode_step(params, cfg, warm, t, tokens=toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    cache = init_decode_cache(cfg, B, steps, device=device)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, cache = decode_step(params, cfg, cache, t, tokens=toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(decode_tok_s=B * steps / wall, decode_step_ms=wall / steps * 1e3)
+    _phase("lm", f"{LM_SSM} bfloat16 decode B={B}, {steps} steps: {out['decode_step_ms']:.3f} "
+           f"ms a step, {out['decode_tok_s']:.1f} tokens/s; logits finite "
+           f"{bool(logits.isfinite().all())} [{smi}]")
+    if not logits.isfinite().all():
+        raise SystemExit(f"lm: {LM_SSM} decode logits not finite")
+    out["decode_busy"] = _lm_profile(
+        lambda: decode_step(params, cfg, cache, steps, tokens=toks[:, :1]),
+        f"one {LM_SSM} bfloat16 decode step (B={B})")
+    del warm, cache
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = SSM_DECODE_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    fwd, _ = forward(params, f32, tokens=toks)
+    cache = init_decode_cache(f32, B, S, torch.float32, device=device)
+    dec = []
+    for t in range(S):
+        d, cache = decode_step(params, f32, cache, t, tokens=toks[:, t:t + 1])
+        dec.append(d)
+    err = _lm_close(f"{LM_SSM} decode vs forward", torch.cat(dec, 1), fwd, LM_SSM_TOL)
+    _phase("lm", f"{LM_SSM} float32 teacher-forced decode vs forward at B={B}, S={S}: within "
+           f"{LM_SSM_TOL}, max|err| {err:.3g} (max|logit| {fwd.abs().max().item():.4g})")
+    out["decode_vs_forward"] = err
+    return out
+
+
+def _lm_moe(device, cpu, smi: str) -> dict:
+    """One qwen2-moe-a2.7b MoE layer at full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import apply_moe, init_moe, moe_capacity
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(LM_MOE)
+    gen = torch.Generator(device=device).manual_seed(70)
+    p = init_moe(gen, cfg, device=device)
+    n_params = sum(a.numel() for a in tree_leaves(p))
+    B, S = MOE_LOAD
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+    o1, l1 = apply_moe(p, x, cfg)
+    o2, l2 = apply_moe(p, x, cfg)
+    same = torch.equal(o1, o2) and all(torch.equal(l1[k], l2[k]) for k in l1)
+    walls = _lm_walls(lambda: apply_moe(p, x, cfg))
+    ms = statistics.median(walls) * 1e3
+    out = {"params": n_params, "ms": ms, "tok_s": B * S / ms * 1e3, "bit_equal": same}
+    _phase("lm", f"{LM_MOE} MoE layer ({cfg.n_experts} experts padded to {cfg.experts_alloc}, "
+           f"top-{cfg.n_experts_per_tok}, d {cfg.d_model}, moe_d_ff {cfg.moe_d_ff}, shared "
+           f"{cfg.shared_d_ff}; {n_params} float32 parameters) bfloat16 at B={B} x S={S} "
+           f"(capacity {moe_capacity(cfg, S)}): two runs bit-equal {same}; {ms:.3f} ms, "
+           f"{out['tok_s']:.1f} tokens/s (median of {len(walls)}) [{smi}]")
+    if not (same and o1.isfinite().all()):
+        raise SystemExit(f"lm: {LM_MOE} MoE layer: bit-equal {same}")
+    del o1, o2, x
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = MOE_CHECK
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+    got, got_l = apply_moe(p, x, f32)
+    want, want_l = apply_moe(tree_map(lambda a: a.to(cpu), p), x.to(cpu), f32)
+    err = max([_lm_close(f"{LM_MOE} MoE layer float32", got, want, LM_TOL)]
+              + [_lm_close(f"{LM_MOE} {k}", got_l[k], want_l[k], LM_TOL) for k in got_l])
+    _phase("lm", f"{LM_MOE} MoE layer float32 at B={B} x S={S}: card == CPU within {LM_TOL} "
+           f"(output and both losses), max|err| {err:.3g}")
+    return out
+
+
+def phase_lm(device, smi: str) -> dict:
+    """The LM stack's forward and decode (ROADMAP item 18b) on the card: the
+    ten smoke configs against the port on the CPU, qwen3-0.6b and
+    mamba2-1.3b at full width and depth, one qwen2-moe-a2.7b MoE layer at
+    full width.  Each load frees its parameters before the next."""
+    import torch
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    out = {"families": _lm_families(device, cpu)}
+    for name, part in (("dense", lambda: _lm_dense(device, cpu, smi)),
+                       ("ssm", lambda: _lm_ssm(device, smi)),
+                       ("moe", lambda: _lm_moe(device, cpu, smi))):
+        out[name] = part()
+        torch.cuda.empty_cache()
+    _phase("lm", f"phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> dict:
     """A dense kernel launches in serving, once per step in every fc layer of
     the training runs (the batch as lanes), and in the engine paths
@@ -2143,6 +2549,7 @@ def main() -> int:
     persist = phase_persist(device)
     engine = phase_engine(device)
     sharded = phase_sharded(device)
+    lm = phase_lm(device, smi)
     # the persist phase's serving loads launch at serving's shape; the restart
     # runner and the engine launcher at the population's, the sharded engine
     # at its tile's
@@ -2197,6 +2604,14 @@ def main() -> int:
         if run != "collectives_ms":
             _phase("sharded", f"{run}: step {r['sharded_ms']:.4f} ms sharded, "
                    f"{r['unsharded_ms']:.4f} ms unsharded")
+    d = lm["dense"]
+    _phase("lm", f"{LM_DENSE}: prefill {d['prefill_tok_s']:.1f} tokens/s, decode "
+           f"{d['decode_bfloat16']['tok_s']:.1f} (bfloat16 cache) / {d['decode_int8']['tok_s']:.1f} "
+           f"(int8) tokens/s, busy share prefill {d['prefill_busy']} decode {d['decode_busy']}; "
+           f"{LM_SSM}: prefill {lm['ssm']['prefill_tok_s']:.1f}, decode "
+           f"{lm['ssm']['decode_tok_s']:.1f} tokens/s, busy share prefill "
+           f"{lm['ssm']['prefill_busy']} decode {lm['ssm']['decode_busy']}; "
+           f"{LM_MOE} layer {lm['moe']['ms']:.3f} ms [{smi}]")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -2,7 +2,8 @@
 
 The two packages' random streams cannot match, so everything a parity
 check compares goes through here (engine, serving-session, SNN and
-fixed-point neuron state, parameter and gradient trees, optimizer state):
+fixed-point neuron state, parameter and gradient trees, optimizer state,
+LM parameters and decode caches):
 the reference's state, read as numpy arrays, becomes the port's on a chosen
 device, and the port's state comes
 back as numpy arrays in the reference's field order, ready to wrap in its
@@ -16,6 +17,11 @@ for mstdp, or an int32 last-spike counter array for the counter rules; the
 converters dispatch on it.  The history ring's ``head`` is int64 in the port
 and int32 in the reference; the words, planes, counters, eligibility,
 weights and membranes keep their dtypes.
+
+A JAX bfloat16 array reads as an ``ml_dtypes`` numpy dtype that
+``torch.as_tensor`` refuses; the LM converters carry such leaves through
+float32, which holds every bfloat16 value exactly, and hand them back as
+float32 arrays.  int8 and float32 leaves carry across as they are.
 """
 from __future__ import annotations
 
@@ -25,7 +31,10 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.core.history import SpikeHistory
 from repro_torch.core.lif import IzhikevichState, LIFFixedState, LIFState
+from repro_torch.models.kvcache import KVCache
 from repro_torch.models.snn import LayerState, SNNState
+from repro_torch.models.ssm import SSMCache
+from repro_torch.models.transformer import DecodeCache
 from repro_torch.plasticity.mstdp import MSTDPState
 from repro_torch.serve.session import SessionState
 from repro_torch.train.optimizer import OptState
@@ -170,3 +179,63 @@ def opt_state_from_arrays(state, *, device: torch.device | str) -> OptState:
 def opt_state_to_numpy(state: OptState) -> tuple:
     """``(step, mu, nu)`` in the reference's ``OptState`` field order."""
     return _np(state.step, np.int32), tree_to_numpy(state.mu), tree_to_numpy(state.nu)
+
+
+def _lm_leaf(x, device) -> torch.Tensor:
+    """A tensor from an array leaf; a bfloat16 leaf (``ml_dtypes``) through
+    float32, exact both ways."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.as_tensor(a).to(device)
+
+
+def _lm_np(x: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy; bfloat16 comes back as float32 (exact)."""
+    return _np(x.float() if x.dtype == torch.bfloat16 else x)
+
+
+def lm_params_from_arrays(tree, *, device: torch.device | str):
+    """An LM parameter tree (``models/transformer.py:init_model``'s nesting,
+    leaves stacked over layers) from the reference's, each leaf keeping its
+    dtype (bfloat16 through float32)."""
+    return tree_map(lambda x: _lm_leaf(x, device), tree)
+
+
+def lm_params_to_numpy(tree):
+    """The tree with every leaf as a numpy array (bfloat16 as float32)."""
+    return tree_map(_lm_np, tree)
+
+
+def _kv_cache(kv, device) -> KVCache | None:
+    if kv is None:
+        return None
+    return KVCache(*(None if x is None else _lm_leaf(x, device)
+                     for x in (kv.k, kv.v, kv.k_scale, kv.v_scale)))
+
+
+def decode_cache_from_arrays(cache, *, device: torch.device | str) -> DecodeCache:
+    """``DecodeCache`` from the reference's (``kv``, ``global_kv``, ``ssm``,
+    ``cross_k``, ``cross_v``): KV caches in bfloat16, float32 or int8 with
+    their scales, the SSM conv and state, the VLM cross K/V; None stays
+    None."""
+    ssm = None if cache.ssm is None else SSMCache(_lm_leaf(cache.ssm.conv, device),
+                                                  _lm_leaf(cache.ssm.state, device))
+    return DecodeCache(kv=_kv_cache(cache.kv, device),
+                       global_kv=_kv_cache(cache.global_kv, device), ssm=ssm,
+                       cross_k=None if cache.cross_k is None else _lm_leaf(cache.cross_k, device),
+                       cross_v=None if cache.cross_v is None else _lm_leaf(cache.cross_v, device))
+
+
+def decode_cache_to_numpy(cache: DecodeCache) -> tuple:
+    """``(kv, global_kv, ssm, cross_k, cross_v)`` in the reference's
+    ``DecodeCache`` field order: each KV cache ``(k, v, k_scale, v_scale)``,
+    the SSM cache ``(conv, state)``; bfloat16 as float32, None as None."""
+    def opt(x):
+        return None if x is None else _lm_np(x)
+
+    def kv(c):
+        return None if c is None else tuple(opt(x) for x in c)
+
+    ssm = None if cache.ssm is None else (_lm_np(cache.ssm.conv), _lm_np(cache.ssm.state))
+    return kv(cache.kv), kv(cache.global_kv), ssm, opt(cache.cross_k), opt(cache.cross_v)

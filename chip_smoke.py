@@ -160,10 +160,29 @@ printed on lines of its own:
              qwen2-moe-a2.7b MoE layer at full width (60 experts padded to 64,
              d 2,048): bfloat16 at B=4 × S=4,096 bit-equal over two runs,
              timed, float32 at B=1 × S=256 on the card ≡ the CPU;
-16. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+16. lm_train — LM training with ITP-AdamW (ROADMAP item 18c): the ten smoke
+             configs at float32, one AdamW step on the card against the port
+             on the CPU within the LM float32 clause (the SSM and hybrid
+             families within 2e-3) and one ITP-AdamW step twice on the card,
+             bit-equal; qwen3-0.6b at full width and depth (596,049,920
+             float32 master parameters, bfloat16 compute) trained with
+             ITP-AdamW at B=4 × S=2,048 on Zipf tokens with ``remat="full"``:
+             one warm-up step, 4 timed steps (ms a step, tokens/s, peak
+             memory) and one profiled step (device-busy share, top device
+             ops), the po2 kernels' launches set to 0 before and read after
+             (one encode and one decode per leaf per step); from the state it
+             reached, the step with kernels 9-10 ≡ the step on the plain
+             quantiser bitwise; at B=4 × S=512 ``remat`` none / full / dots
+             bit-equal, each with its ms and peak memory; the bfloat16
+             gradient against the float32 one at B=2 × S=1,024 with PyTorch's
+             reduced-precision bf16 reduction on and off; then the launcher's
+             LM mode on the card at smoke size with a failure injected: one
+             restart, the final state bit-equal to an uninterrupted run;
+17. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving, the fc
    layers of the training runs and phases 12-14, its times at the shape
-   where most of them fall; the matrix and audit phases' launches added), the
+   where most of them fall; the matrix, audit and lm_train phases' launches
+   added), the
    ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
    line.
 
@@ -296,6 +315,20 @@ SSM_DECODE_STEPS = 32
 SSM_DECODE_CHECK = (1, 256)
 MOE_LOAD = (4, 4096)
 MOE_CHECK = (1, 256)
+# the lm_train phase (ROADMAP item 18c): the smoke configs' step, qwen3-0.6b
+# trained at full width and depth ((batch, sequence) and timed steps after one
+# warm-up), the remat comparison's and the bf16-reduction probe's shapes, the
+# launcher's LM mode at smoke size; the optimizer is the launcher's at --steps 100
+LM_TRAIN_SMOKE = (2, 16)
+LM_TRAIN = (4, 2048)
+LM_TRAIN_STEPS = 4
+LM_REMAT = (4, 512)
+LM_REMAT_REPS = 3
+LM_BF16_PROBE = (2, 1024)
+LM_TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=5)
+LM_LAUNCH = ["--smoke", "--arch", LM_DENSE, "--steps", "12", "--batch", "4", "--seq", "64",
+             "--ckpt-every", "4", "--po2-update", "--log-every", "4"]
+LM_LAUNCH_FAIL_AT = 7
 DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
 DRIFT_RMSE_TOL = 5e-4
 # bytes per element, inputs read once and outputs written once: kernel 7 reads
@@ -2470,6 +2503,310 @@ def phase_lm(device, smi: str) -> dict:
     return out
 
 
+def _to_device(tree, device):
+    """A parameter tree, batch or ``OptState`` with every tensor on ``device``."""
+    from repro_torch.train import OptState
+    from repro_torch.tree import tree_map
+
+    if isinstance(tree, OptState):
+        return OptState(*(_to_device(x, device) for x in tree))
+    return tree_map(lambda a: a.to(device), tree)
+
+
+def _lm_train_step(cfg, *, remat: str = "full", po2_update: bool = True,
+                   use_kernel: bool = True):
+    from repro_torch.train import OptimizerConfig, TrainConfig, make_train_step
+
+    return make_train_step(cfg, OptimizerConfig(**LM_TRAIN_OPT, po2_update=po2_update),
+                           TrainConfig(remat=remat), use_kernel=use_kernel)
+
+
+def _bitwise(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.equal(y) for x, y in zip(la, lb))
+
+
+def _lm_train_smoke(device, cpu) -> dict:
+    """The ten smoke configs at float32: one AdamW step on the card against
+    the CPU, one ITP-AdamW step twice on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import init_opt_state
+    from repro_torch.tree import tree_leaves
+
+    B, S = LM_TRAIN_SMOKE
+    out = {}
+    for i, arch in enumerate(ARCH_NAMES):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        gen = torch.Generator().manual_seed(80 + i)
+        params = _lm_perturbed(init_model(gen, cfg, device=cpu), gen)
+        batch = next(lm_batches(gen, LMBatchSpec(batch=B, seq=S, vocab=cfg.vocab_size)))
+        if cfg.family == "vlm":
+            batch["vis_embed"] = torch.randn((B, 8, cfg.vis_dim), generator=gen) * 0.5
+        state = init_opt_state(params)
+        card = [_to_device(x, device) for x in (params, state, batch)]
+        adamw = _lm_train_step(cfg, remat="none", po2_update=False)
+        want, got = adamw(params, state, batch), adamw(*card)
+        tol = LM_SSM_TOL if cfg.family in ("ssm", "hybrid") else LM_TOL
+        err = max(_lm_close(f"{arch} step: leaf {j}", g, w, tol) for j, (g, w) in
+                  enumerate(zip(tree_leaves(got[:2]), tree_leaves(want[:2]))))
+        for name in want[2]:
+            _lm_close(f"{arch} step: {name}", got[2][name], want[2][name], LM_TOL)
+        itp = _lm_train_step(cfg, remat="none")
+        same = _bitwise(itp(*card), itp(*card))
+        _phase("lm_train", f"{arch} smoke (float32, B={B}, S={S}): AdamW step card == CPU "
+               f"within {tol}, max|err| {err:.3g} over params and moments; ITP-AdamW step "
+               f"twice on the card bit-equal {same}")
+        if not same:
+            raise SystemExit(f"lm_train: {arch}: two card steps differ")
+        out[arch] = err
+    return out
+
+
+# device kernels of the LM train step by kind: the first pattern a kernel's
+# name contains decides (float32 products run on SIMT/FFMA kernels, bf16 ones
+# on tensor-core GEMMs)
+LM_KINDS = (("float32 products", ("sgemm", "f32f32_f32f32", "ffma")),
+            ("bf16 products", ("gemm", "nvjet", "xmma")),
+            ("copies and casts", ("copy",)),
+            ("reductions", ("reduce",)),
+            ("po2 kernels", ("po2_",)))
+
+
+def _device_kinds(prof) -> dict:
+    """Device ms of one profiled run by kind (``LM_KINDS``, the rest
+    "other elementwise"), each kernel's own time counted once."""
+    import torch
+
+    kinds = {name: 0.0 for name, _ in LM_KINDS}
+    kinds["other elementwise"] = 0.0
+    for row in prof.key_averages():
+        if row.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(row, "self_device_time_total", 0.0) or getattr(
+            row, "self_cuda_time_total", 0.0)
+        kind = next((name for name, pats in LM_KINDS if any(p in row.key for p in pats)),
+                    "other elementwise")
+        kinds[kind] += us / 1e3
+    return kinds
+
+
+def _lm_flat_grad(params, cfg, batch):
+    """(loss, the gradient flattened) of ``lm_loss`` with ``remat="full"``."""
+    import torch
+
+    from repro_torch.train import TrainConfig, loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    loss, _, grads = loss_and_grads(params, cfg, batch, train_cfg=TrainConfig(remat="full"))
+    return loss, torch.cat([g.flatten() for g in tree_leaves(grads)])
+
+
+def _lm_train_full(device, smi: str) -> dict:
+    """qwen3-0.6b trained at full width and depth with ITP-AdamW."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.kernels.po2_quant import kernel as PK
+    from repro_torch.train import OptimizerConfig, init_training
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_DENSE)
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(90)
+    params, opt = init_training(gen, cfg, OptimizerConfig(**LM_TRAIN_OPT, po2_update=True),
+                                device=device)
+    leaves = tree_leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    if n_params != LM_PARAMS[LM_DENSE]:
+        raise SystemExit(f"lm_train: {LM_DENSE} has {n_params} parameters")
+
+    def batches(shape):
+        spec = LMBatchSpec(batch=shape[0], seq=shape[1], vocab=cfg.vocab_size)
+        return lambda step: next(lm_batches(torch.Generator(device).manual_seed(1000 + step),
+                                            spec, n_steps=1))
+
+    B, S = LM_TRAIN
+    batch_for = batches(LM_TRAIN)
+    if not all(torch.equal(a, b) for a, b in zip(batch_for(0).values(),
+                                                 batch_for(0).values())):
+        raise SystemExit("lm_train: one seed gave two batches")     # a replay needs one
+    step = _lm_train_step(cfg)
+    counters = (PK.po2_encode, PK.po2_decode)
+
+    # --- the main path: a warm-up step, the timed steps, one profiled step
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch_for(0))
+    losses = [float(m["loss"])]
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for k in range(1, LM_TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch_for(k))
+        losses.append(float(m["loss"]))            # reads the loss back: the step is done
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch_for(LM_TRAIN_STEPS + 1))
+        losses.append(float(m["loss"]))
+        seconds = time.perf_counter() - t0
+    n_steps = LM_TRAIN_STEPS + 2
+    launches = {fn.__name__: fn.launches for fn in counters}
+    # the state's float32 bits summed: equal in two processes if the run is
+    # deterministic across processes, not only within one
+    checksum = sum(int(a.view(torch.int32).sum(dtype=torch.int64))
+                   for a in tree_leaves((params, opt.mu, opt.nu)))
+    step_s = statistics.median(walls)
+    out = {"params": n_params, "leaves": len(leaves), "steps": n_steps, "step_ms": step_s * 1e3,
+           "tok_s": B * S / step_s, "warm_ms": warm_s * 1e3, "peak_gb": peak, "losses": losses,
+           "launches": launches, "grad_norm": float(m["grad_norm"])}
+    _phase("lm_train", f"{LM_DENSE} ({n_params} float32 parameters, {len(leaves)} leaves, "
+           f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}; bfloat16 compute) "
+           f"trained with ITP-AdamW at B={B} x S={S}, remat full, Zipf tokens: "
+           f"{out['step_ms']:.2f} ms a step, {out['tok_s']:.1f} tokens/s (median of "
+           f"{len(walls)}: {[round(w * 1e3, 2) for w in walls]} ms; warm-up step "
+           f"{out['warm_ms']:.2f} ms), peak {peak:.3f} GB allocated; losses {losses}; state "
+           f"checksum {checksum}; po2 launches {launches} over {n_steps} steps [{smi}]")
+    out["busy"] = _report_profile(prof, seconds, f"one {LM_DENSE} ITP-AdamW train step "
+                                  f"({B} x {S}, remat full)")
+    out["device_kinds_ms"] = _device_kinds(prof)
+    _phase("profile", "  by kind: " + ", ".join(f"{k} {v:.2f} ms"
+                                                for k, v in out["device_kinds_ms"].items()))
+    want = {name: len(leaves) * n_steps for name in launches}
+    if launches != want or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"lm_train: launches {launches} (want {want}), losses {losses}")
+
+    # --- kernels 9-10 against the plain quantiser on this run's gradients
+    b = batch_for(n_steps)
+    kern = step(params, opt, b)
+    plain = _lm_train_step(cfg, use_kernel=False)(params, opt, b)
+    same = _bitwise(kern, plain)
+    moved = sum(int((x != y).sum()) for x, y in zip(tree_leaves(kern[0]), tree_leaves(params)))
+    _phase("lm_train", f"{LM_DENSE} step {n_steps + 1}: kernels po2_encode/po2_decode == the "
+           f"plain quantiser (params, moments, metrics) bitwise {same}; {moved} parameters "
+           f"moved")
+    if not same:
+        raise SystemExit("lm_train: the ITP-AdamW step on kernels 9-10 differs from the plain "
+                         "quantiser's")
+    del kern, plain
+
+    # --- remat none / full / dots at a shorter sequence: each policy's
+    # first step is held on the host against the others' (so no step's peak
+    # holds another's result), then timed over LM_REMAT_REPS more
+    rb = batches(LM_REMAT)(100)
+    remat, first = {}, None
+    for policy in ("none", "full", "dots"):
+        remat_step = _lm_train_step(cfg, remat=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = remat_step(params, opt, rb)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        res = _to_device(res[:2], cpu) + (_to_device(res[2], cpu),)
+        if first is None:
+            first = res
+        elif not _bitwise(res, first):
+            raise SystemExit(f"lm_train: remat {policy} differs from remat none")
+        del res
+        walls = []
+        for _ in range(LM_REMAT_REPS):
+            t0 = time.perf_counter()
+            float(remat_step(params, opt, rb)[2]["loss"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        remat[policy] = {"ms": statistics.median(walls), "peak_gb": peak}
+    out["remat"] = remat
+    _phase("lm_train", f"{LM_DENSE} remat at B={LM_REMAT[0]} x S={LM_REMAT[1]}: none / full / "
+           f"dots bit-equal (loss {float(first[2]['loss']):.6f}, params, moments); "
+           + ", ".join(f"{k} {v['ms']:.2f} ms peak {v['peak_gb']:.3f} GB"
+                       for k, v in remat.items())
+           + f" (median of {LM_REMAT_REPS} steps each) [{smi}]")
+    del first
+
+    # --- PyTorch's reduced-precision bf16 reduction against float32 compute
+    pb = batches(LM_BF16_PROBE)(200)
+    loss32, g32 = _lm_flat_grad(params, dataclasses.replace(cfg, dtype="float32"), pb)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    probe = {}
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+            loss, g = _lm_flat_grad(params, cfg, pb)
+            probe[on] = {"loss_rel": abs(float(loss) - float(loss32)) / abs(float(loss32)),
+                         "grad_rel": float(torch.linalg.vector_norm(g - g32)
+                                           / torch.linalg.vector_norm(g32)),
+                         "grad_corr": float(torch.corrcoef(torch.stack([g, g32]))[0, 1])}
+            del g
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    out["bf16_reduction"] = probe
+    _phase("lm_train", f"{LM_DENSE} bfloat16 against float32 compute at B={LM_BF16_PROBE[0]} x "
+           f"S={LM_BF16_PROBE[1]} (the process default allow_bf16_reduced_precision_reduction="
+           f"{flag}): " + "; ".join(
+               f"reduced-precision reduction {'on' if on else 'off'}: loss relative "
+               f"{r['loss_rel']:.3g}, gradient relative error {r['grad_rel']:.5g}, correlation "
+               f"{r['grad_corr']:.7f}" for on, r in probe.items()))
+    return out
+
+
+def _lm_train_launcher(device, smi: str) -> dict:
+    """``launch.train``'s LM mode on the card at smoke size: a failure
+    injected, one restart, the final state bit-equal to an uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_", dir=ROOT / "build"))
+    ap = launch_train.build_parser()
+    try:
+        argv = LM_LAUNCH + ["--device", str(device)]
+        clean, a = launch_train.lm_training(ap.parse_args(argv + ["--ckpt-dir",
+                                                                  str(scratch / "a")]))
+        failed, b = launch_train.lm_training(ap.parse_args(
+            argv + ["--ckpt-dir", str(scratch / "b"), "--inject-failure-at",
+                    str(LM_LAUNCH_FAIL_AT)]))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    same = _bitwise(a, b)
+    _phase("lm_train", f"launch.train LM mode {' '.join(LM_LAUNCH)} on {device}: "
+           f"{clean['tokens_per_s']:.1f} tokens/s, final loss {clean['final_loss']:.5f}; with a "
+           f"failure at step {LM_LAUNCH_FAIL_AT}: restarts {failed['restarts']}, final state "
+           f"bit-equal {same} [{smi}]")
+    if not (same and clean["restarts"] == 0 and failed["restarts"] == 1):
+        raise SystemExit(f"lm_train: launcher restart: bit-equal {same}, restarts "
+                         f"{clean['restarts']} / {failed['restarts']}")
+    return {"clean": clean, "failed": failed}
+
+
+def phase_lm_train(device, smi: str) -> dict:
+    """LM training with ITP-AdamW (ROADMAP item 18c) on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"smoke": _lm_train_smoke(device, torch.device("cpu"))}
+    out["full"] = _lm_train_full(device, smi)
+    torch.cuda.empty_cache()
+    out["launcher"] = _lm_train_launcher(device, smi)
+    _phase("lm_train", f"phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> dict:
     """A dense kernel launches in serving, once per step in every fc layer of
     the training runs (the batch as lanes), and in the engine paths
@@ -2550,6 +2887,7 @@ def main() -> int:
     engine = phase_engine(device)
     sharded = phase_sharded(device)
     lm = phase_lm(device, smi)
+    lm_train = phase_lm_train(device, smi)
     # the persist phase's serving loads launch at serving's shape; the restart
     # runner and the engine launcher at the population's, the sharded engine
     # at its tile's
@@ -2585,6 +2923,9 @@ def main() -> int:
     for name, n in audit["launches"].items():
         launches[name] += n
         kernels[name].setdefault("launches_by_shape", {})["audit"] = n
+    for name, n in lm_train["full"]["launches"].items():   # ITP-AdamW at full width
+        launches[name] += n
+        kernels[name].setdefault("launches_by_shape", {})["lm_train"] = n
     e = sparse_mstdp["engine"]
     _phase("sparse_mstdp", f"sparse update at 784x100 (density pre {e['pre_density']:.4f}, "
            f"post {e['post_density']:.4f}): {e['sparse_device_ms']:.5f} ms device against "
@@ -2612,6 +2953,10 @@ def main() -> int:
            f"{lm['ssm']['decode_tok_s']:.1f} tokens/s, busy share prefill "
            f"{lm['ssm']['prefill_busy']} decode {lm['ssm']['decode_busy']}; "
            f"{LM_MOE} layer {lm['moe']['ms']:.3f} ms [{smi}]")
+    f = lm_train["full"]
+    _phase("lm_train", f"{LM_DENSE} ITP-AdamW training at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}: "
+           f"{f['step_ms']:.2f} ms a step, {f['tok_s']:.1f} tokens/s, peak {f['peak_gb']:.3f} "
+           f"GB, busy share {f['busy']} [{smi}]")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -10,4 +10,14 @@ repro_torch.launch.serve``) run on ``cuda`` unless the caller passes
 ``device="cpu"``.  The dense fused ITP-STDP update is a CUDA C++ kernel for
 ``sm_90a`` (``csrc/itp_stdp.cu``), built at first use by
 :mod:`repro_torch.kernels._build`.
+
+Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` to ``:4096:8`` unless
+the environment already sets it.  cuBLAS reads the setting at the process's
+first cuBLAS call, and PyTorch's deterministic mode, which the LM training
+step runs under (:func:`repro_torch.device.deterministic`), refuses cuBLAS
+without it.  ``:4096:8`` is PyTorch's own default workspace on ``sm_90``, so
+on the H100 nothing else changes.
 """
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

@@ -48,6 +48,7 @@ from torch.utils import _pytree as pytree
 import repro_torch
 from repro_torch import plasticity
 from repro_torch.core.engine import EngineConfig, engine_step, init_engine
+from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import BACKENDS
 from repro_torch.models.snn import SNNConfig, SNNLayerSpec, init_snn, snn_step
 
@@ -108,15 +109,17 @@ def valid_cells(kinds: Iterable[str] = KINDS) -> list[tuple[str, str, str]]:
 
 
 def cell_program(rule: str, backend: str, kind: str, *,
-                 device: torch.device | str = "cpu", packed_history: bool = True
+                 device: torch.device | str = "cuda", packed_history: bool = True
                  ) -> tuple[Any, torch.Tensor, Callable]:
-    """→ ``(state, input spikes, step)`` of one cell on ``device``.
+    """→ ``(state, input spikes, step)`` of one cell on ``device`` (CUDA
+    unless the caller asks for the CPU).
 
     The state is built eagerly from a seeded generator (the init functions
     size buffers with Python ints, as the reference's do); the input is a
     float32 {0,1} raster row, seeded too.  ``step(state, spikes)`` returns
     ``(state', out)``.  ``packed_history=False`` feeds the history rules'
     kernels bitplanes instead of words."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(0)
     max_events = _SPARSE_EVENTS if backend == "sparse" else None
     if kind == "engine":
@@ -186,8 +189,11 @@ def kernel_ops(graph_module: torch.fx.GraphModule) -> dict[str, int]:
 
 
 def audit_cell(rule: str, backend: str, kind: str, *,
-               device: torch.device | str = "cpu") -> dict:
-    """Trace one matrix cell on ``device`` and check its contracts; never raises."""
+               device: torch.device | str = "cuda") -> dict:
+    """Trace one matrix cell on ``device`` and check its contracts.  Past the
+    device's resolution (CUDA unless the caller asks for the CPU, raising
+    without it) it never raises: a trace failure is a violation."""
+    device = resolve_device(device)
     cell: dict[str, Any] = {"rule": rule, "backend": backend, "kind": kind,
                             "violations": []}
     sites = _Float64Sites()
@@ -240,12 +246,12 @@ def audit_cell(rule: str, backend: str, kind: str, *,
     return cell
 
 
-def run_audit(kinds: Iterable[str] = KINDS, *, device: torch.device | str = "cpu") -> dict:
+def run_audit(kinds: Iterable[str] = KINDS, *, device: torch.device | str = "cuda") -> dict:
     """Audit every valid cell of ``kinds`` on ``device``; the allowlist entries
     no cell used are reported as ``stale_allowlist`` and count as a failure
     only when every kind was audited (a slice of the matrix need not use
     them all)."""
-    kinds = tuple(kinds)
+    kinds, device = tuple(kinds), resolve_device(device)
     cells = [audit_cell(rule, backend, kind, device=device)
              for rule, backend, kind in valid_cells(kinds)]
     used = {tuple(site.split(":")) for c in cells for site in c.get("f64_sites", ())}

@@ -1,7 +1,7 @@
-"""Procedurally generated stand-ins for the paper's three datasets (port of
-the image and fault generators of ``repro.data.synthetic``): MNIST-,
+"""Procedurally generated stand-ins for the paper's three datasets and the
+LM token streams (port of ``repro.data.synthetic``): MNIST-,
 Fashion-MNIST- and motor-rotor-fault-class data with the same shapes and
-dynamic range.  The LM token streams come with ROADMAP queue 1 item 18.
+dynamic range, and Zipf-distributed token batches for the LM stack.
 
 Each generator draws its random numbers from an explicit
 ``torch.Generator`` and hands them to a deterministic ``*_from_draws``
@@ -10,7 +10,9 @@ draws.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Iterator
 
 import torch
 
@@ -125,3 +127,55 @@ def synthetic_fault(generator: torch.Generator | None, n: int, *, length: int = 
     z = torch.randn((n, length, channels), generator=generator)
     return fault_from_draws(labels, phase_u, imp_u, z, length=length, channels=channels,
                             noise=noise), labels
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+def zipf_tokens(generator: torch.Generator, batch: int, seq: int, vocab: int,
+                alpha: float = 1.1) -> torch.Tensor:
+    """Zipf-distributed token ids ``(batch, seq)`` int32 (realistic LM token
+    marginals: id ``r`` with probability ∝ ``(r + 1)^-alpha``), drawn on the
+    generator's device by inverse CDF.  The CDF is summed on the host in
+    float64, one sequential sum with the same bits every call (a device
+    scan, such as ``torch.multinomial``'s on CUDA, may add in another order
+    from call to call and move a draw to the next id), so one seed gives one
+    batch, as a replay after a restart needs."""
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64)
+    cdf = torch.cumsum(torch.exp(-alpha * torch.log(ranks)), 0)
+    cdf = (cdf / cdf[-1]).to(generator.device)
+    u = torch.rand(batch * seq, generator=generator, dtype=torch.float64,
+                   device=generator.device)
+    ids = torch.searchsorted(cdf, u, right=True).clamp_(max=vocab - 1)
+    return ids.reshape(batch, seq).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMBatchSpec:
+    batch: int
+    seq: int
+    vocab: int
+
+
+def lm_batches(generator: torch.Generator, spec: LMBatchSpec,
+               n_steps: int | None = None) -> Iterator[dict]:
+    """Infinite (or ``n_steps``-long) stream of ``{tokens, labels}`` LM
+    batches from ``generator``, on its device.
+
+    labels = tokens shifted left (next-token prediction); the final column
+    is masked with -1 (ignored by the loss)."""
+    step = 0
+    while n_steps is None or step < n_steps:
+        toks = zipf_tokens(generator, spec.batch, spec.seq, spec.vocab)
+        labels = torch.cat([toks[:, 1:], toks.new_full((spec.batch, 1), -1)], dim=1)
+        yield {"tokens": toks, "labels": labels}
+        step += 1
+
+
+def host_shard(batch: dict, host_id: int, n_hosts: int) -> dict:
+    """Per-host slice of a global batch (multi-host data loading)."""
+    def slc(x):
+        per = x.shape[0] // n_hosts
+        return x[host_id * per:(host_id + 1) * per]
+    return {k: slc(v) for k, v in batch.items()}

@@ -8,13 +8,16 @@ decimal digits, the JAX reference computes in full float32).
 
 :func:`eager` wraps the functions that build the constant tensors the port caches
 per shape and device (po2 read vectors, window tables, im2col indices,
-update plans).
+update plans).  :func:`deterministic` runs the LM training step with
+PyTorch's deterministic algorithms.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+import torch.utils.deterministic
 from torch.utils._python_dispatch import _disable_current_modes
 
 
@@ -46,3 +49,24 @@ def eager(build):
         with _disable_current_modes():
             return build(*args, **kwargs)
     return built_eagerly
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms for the body, then the previous
+    setting.  On CUDA the backwards of the LM's gathers (the embedding rows,
+    the MoE's token gather and combine) otherwise add floats with atomics, so
+    two runs of one step would differ.  Uninitialised memory is not filled
+    (no op of the port reads it).  cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG``
+    from the process's first cuBLAS call (``repro_torch/__init__.py`` sets
+    it)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+        torch.utils.deterministic.fill_uninitialized_memory = fill

@@ -1,4 +1,17 @@
-"""Training launcher: ``python -m repro_torch.launch.train --snn <net> | --engine [...]``.
+"""Training launcher: ``python -m repro_torch.launch.train [--arch A | --snn NET | --engine]``.
+
+With neither ``--snn`` nor ``--engine`` it runs the LM mode (ROADMAP item
+18c): a synthetic-token LM run of ``--arch`` (``--smoke``: its reduced
+config) on ``--device`` (default ``cuda``) with the reference's control loop:
+``--steps`` train steps of ``--batch`` × ``--seq`` Zipf tokens
+(``data.lm_batches``, each step's batch keyed by its step number), AdamW or
+ITP-AdamW (``--po2-update``: the po2 encode/decode kernels on every leaf
+every step), ``--remat`` activation checkpointing, a checkpoint every
+``--ckpt-every`` steps into ``--ckpt-dir`` and restart-on-failure with
+replay (``distributed.fault_tolerance.TrainingRunner``; ``--inject-failure-at``
+fails one step once), a straggler watchdog, a log line every
+``--log-every`` steps and a ``done: ...`` line.  ``--data`` > 0 (a sharded
+run) waits for item 18d.
 
 ``--snn <net>`` trains one of the paper's networks (2-layer SNN, 6-layer DCSNN, 5-layer
 CSNN) with unsupervised STDP on ``--device`` (default ``cuda``), through the
@@ -13,22 +26,28 @@ layer the dense kernel.
 (``--replicas`` × ``--engine-pre`` × ``--engine-post``, ``--steps`` steps of
 Bernoulli rasters at ``--engine-rate``) on the selected rule and backend and
 reports the synaptic-op throughput: on ``--backend fused`` every step's
-update of all replicas is one launch of the dense kernel.  The reference
-launcher's LM mode is not ported yet (ROADMAP queue 1 item 18).
+update of all replicas is one launch of the dense kernel.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import tempfile
 import time
 
 import torch
 
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core.engine import (EngineConfig, init_engine_population,
                                      run_engine_population)
+from repro_torch.data import LMBatchSpec, lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.distributed.fault_tolerance import (FailureInjector, RunnerConfig,
+                                                     TrainingRunner)
 from repro_torch.launch import cli
 from repro_torch.models import snn
+from repro_torch.train import OptimizerConfig, TrainConfig, init_training, make_train_step
 from repro_torch.train.stdp_trainer import train_to_accuracy
 
 
@@ -130,9 +149,71 @@ def run_snn_training(args) -> dict:
     return summary
 
 
+def lm_training(args) -> tuple[dict, dict]:
+    """The LM mode: ``(summary, final state {"params", "opt"})``.
+
+    The model is drawn from a generator on the run's device seeded by
+    ``--seed`` (default 0), step ``k``'s batch from one seeded by
+    ``1000 + k`` (the reference's ``PRNGKey(1000 + step)``), so a replay
+    after a restart trains on the same tokens.  ``tokens_per_s`` counts the
+    ``--steps`` steps' tokens over the wall time of the whole loop,
+    restarts and replays included."""
+    dev = resolve_device(args.device)
+    steps = args.steps or 100
+    batch = args.batch or 8
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    opt_cfg = OptimizerConfig(lr=args.lr, total_steps=steps,
+                              warmup_steps=max(steps // 20, 5), po2_update=args.po2_update)
+    params, opt_state = init_training(torch.Generator(dev).manual_seed(args.seed or 0), cfg,
+                                      opt_cfg, device=dev)
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig(remat=args.remat))
+    spec = LMBatchSpec(batch=batch, seq=args.seq, vocab=cfg.vocab_size)
+
+    def batch_for(step: int) -> dict:
+        return next(lm_batches(torch.Generator(dev).manual_seed(1000 + step), spec, n_steps=1))
+
+    t0 = time.perf_counter()
+    n_run = 0
+
+    def logged_step(state, batch):
+        nonlocal n_run
+        p, o, metrics = step_fn(state["params"], state["opt"], batch)
+        if n_run % args.log_every == 0:
+            dt = time.perf_counter() - t0
+            print(f"step {n_run:5d}  loss {float(metrics['loss']):.4f}  "
+                  f"lr {float(metrics['lr']):.2e}  gnorm {float(metrics['grad_norm']):.3f}  "
+                  f"({n_run / max(dt, 1e-9):.2f} it/s)", flush=True)
+        n_run += 1
+        return {"params": p, "opt": o}, metrics
+
+    runner = TrainingRunner(RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+                            logged_step, batch_for)
+    injector = (FailureInjector({args.inject_failure_at})
+                if args.inject_failure_at >= 0 else None)
+    state = runner.run({"params": params, "opt": opt_state}, steps, injector)
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in runner.log if "loss" in r]
+    summary = {"arch": args.arch, "config": cfg.name, "device": str(dev), "steps": steps,
+               "batch": batch, "seq": args.seq, "po2_update": args.po2_update,
+               "remat": args.remat,
+               "run_seconds": round(wall, 4), "tokens_per_s": steps * batch * args.seq / wall,
+               "final_loss": losses[-1], "restarts": runner.restarts,
+               "stragglers": len(runner.watchdog.stragglers)}
+    print(f"done: {steps} steps in {wall:.1f}s; restarts={runner.restarts}; "
+          f"stragglers={summary['stragglers']}", flush=True)
+    return summary, state
+
+
+def run_lm_training(args) -> dict:
+    """The LM mode: :func:`lm_training`'s summary (also printed)."""
+    return lm_training(args)[0]
+
+
 def build_parser() -> argparse.ArgumentParser:
-    """The launcher's flags (both modes)."""
+    """The launcher's flags (every mode)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen3-0.6b",
+                    help="LM architecture (LM mode)")
     ap.add_argument("--engine", action="store_true",
                     help="train a population of learning-engine replicas")
     cli.add_net_flag(ap, "--snn", default=None)
@@ -145,8 +226,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine-rate", type=float, default=0.3,
                     help="Bernoulli input spike rate (--engine mode)")
     ap.add_argument("--steps", type=int, default=None,
-                    help="engine steps (--engine mode, default 100); with --snn, total "
-                    "simulation steps as one short epoch unless epoch flags are given")
+                    help="engine steps (--engine mode) or LM train steps (LM mode), default "
+                    "100 each; with --snn, total simulation steps as one short epoch unless "
+                    "epoch flags are given")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable; LM mode)")
+    ap.add_argument("--seq", type=int, default=128, help="tokens per sequence (LM mode)")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", choices=("none", "full", "dots"), default="none")
+    ap.add_argument("--po2-update", action="store_true",
+                    help="ITP-AdamW: po2-quantised optimizer updates")
+    ap.add_argument("--data", type=int, default=0,
+                    help="data-parallel mesh axis (0 = no mesh; a mesh waits for item 18d)")
+    ap.add_argument("--model", type=int, default=1, help="model-parallel mesh axis")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--inject-failure-at", type=int, default=-1)
+    ap.add_argument("--log-every", type=int, default=10)
     return ap
 
 
@@ -157,8 +253,10 @@ def main(argv: list[str] | None = None) -> dict:
         return run_snn_training(args)
     if args.engine:
         return run_engine_training(args)
-    ap.error("the LM mode is not ported yet (ROADMAP queue 1 item 18); "
-             "use --snn <net> or --engine")
+    if args.data > 0:
+        ap.error("a data-parallel mesh (--data > 0) is not ported yet (ROADMAP queue 1 "
+                 "item 18d); run with --data 0")
+    return run_lm_training(args)
 
 
 if __name__ == "__main__":

@@ -17,17 +17,26 @@ Decode writes each layer's cache slot in place: the cache passed to
 tensors.  Nothing restacks the cache (the reference rides it in the scan
 carry for buffer donation, ``transformer.py:385-390``).
 
-``unroll`` and ``remat`` are kept for signature parity: the loop is always
-unrolled, and ``remat`` is checked against the reference's policy names
-only (no backward pass here; item 18c maps it to activation
-checkpointing).  The reference's ``constrain(...)`` hints
-(``transformer.py:138,151,157,264``) are left out.
+``unroll`` is kept for signature parity: the loop is always unrolled.
+``remat`` maps the reference's policies (``_maybe_remat``,
+``transformer.py:35-40,176-180``) onto each block call of :func:`forward`
+when autograd records it: ``"none"`` saves every activation, ``"full"``
+(``nothing_saveable``) checkpoints the block and recomputes it in the
+backward, ``"dots"`` (``dots_with_no_batch_dims_saveable``) checkpoints it
+but saves the outputs of the contractions with no batch dimensions, the
+``aten.mm`` / ``aten.addmm`` a 3-D activation times a 2-D weight folds to,
+and recomputes everything else (``bmm`` and batched einsums included).  A
+recomputed block runs the same kernels on the same inputs, so the loss and
+the gradients are bit-equal under all three.  The reference's
+``constrain(...)`` hints (``transformer.py:138,151,157,264``) are left out.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
@@ -43,14 +52,48 @@ Params = dict[str, Any]
 REMAT_POLICIES = ("none", "full", "dots")
 
 
+# the contractions with no batch dimensions, which "dots" saves
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _check_remat(policy: str | None) -> None:
     if policy is not None and policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}; have {REMAT_POLICIES}")
 
 
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, policy: str | None) -> Callable:
+    """``fn`` (one block) under the ``remat`` policy, when autograd records
+    it (grad mode on and an input that requires grad)."""
+    if policy is None or policy == "none":
+        return fn
+    kw = {} if policy == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(_dots_policy)}
+
+    def remat(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return remat
+
+
 def _layer(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def _layers(stacked: Params) -> list[Params]:
+    """Every layer of a stacked tree (views, no copy).  One ``unbind`` a
+    leaf, so the backward stacks each leaf's gradient once (``a[i]`` for
+    each layer would write a zero-filled stacked gradient per layer)."""
+    leaves = tree_leaves(stacked)
+    per_leaf = [a.unbind(0) for a in leaves]
+    return [tree_unflatten(stacked, [u[i] for u in per_leaf])
+            for i in range(leaves[0].shape[0])]
 
 
 def _n_stacked(stacked: Params) -> int:
@@ -191,30 +234,37 @@ def forward(params: Params, cfg, *, tokens: torch.Tensor | None = None,
            "moe_z": torch.zeros((), dtype=torch.float32, device=x.device)}
 
     if cfg.family == "ssm":
-        for i in range(_n_stacked(params["blocks"])):
-            x = _ssm_block_train(_layer(params["blocks"], i), x, cfg)
+        body = _maybe_remat(lambda bp, c: _ssm_block_train(bp, c, cfg), remat)
+        for bp in _layers(params["blocks"]):
+            x = body(bp, x)
     elif cfg.family == "hybrid":
         glb, runs = hymba_layer_groups(cfg)
+        swa_body = _maybe_remat(lambda bp, c: _hybrid_block_train(bp, c, cfg, positions,
+                                                                  cfg.attn_window), remat)
+        g_body = _maybe_remat(lambda bp, c: _hybrid_block_train(bp, c, cfg, positions, 0),
+                              remat)
+        swa, global_blocks = _layers(params["swa_blocks"]), _layers(params["global_blocks"])
         offset = 0
         for gi, run in enumerate(runs):
             for j in range(len(run)):
-                x = _hybrid_block_train(_layer(params["swa_blocks"], offset + j), x, cfg,
-                                        positions, cfg.attn_window)
+                x = swa_body(swa[offset + j], x)
             offset += len(run)
             if gi < len(glb):
-                x = _hybrid_block_train(_layer(params["global_blocks"], gi), x, cfg,
-                                        positions, 0)
+                x = g_body(global_blocks[gi], x)
     elif cfg.family == "vlm":
-        periods = params["periods"]
-        for pi in range(_n_stacked(periods)):
-            pp = _layer(periods, pi)
-            for j in range(_n_stacked(pp["self"])):
-                x, _ = _dense_block_train(_layer(pp["self"], j), x, cfg, positions, 0)
-            x = _cross_block_train(pp["cross"], x, cfg, vis_embed)
+        self_body = _maybe_remat(lambda bp, c: _dense_block_train(bp, c, cfg, positions, 0)[0],
+                                 remat)
+        cross_body = _maybe_remat(lambda bp, c: _cross_block_train(bp, c, cfg, vis_embed),
+                                  remat)
+        for pp in _layers(params["periods"]):
+            for bp in _layers(pp["self"]):
+                x = self_body(bp, x)
+            x = cross_body(pp["cross"], x)
     else:  # dense / moe / audio
-        for i in range(_n_stacked(params["blocks"])):
-            x, losses = _dense_block_train(_layer(params["blocks"], i), x, cfg, positions,
-                                           cfg.attn_window)
+        body = _maybe_remat(lambda bp, c: _dense_block_train(bp, c, cfg, positions,
+                                                             cfg.attn_window), remat)
+        for bp in _layers(params["blocks"]):
+            x, losses = body(bp, x)
             aux["moe_aux"] = aux["moe_aux"] + losses.get("moe_aux", 0.0)
             aux["moe_z"] = aux["moe_z"] + losses.get("moe_z", 0.0)
 

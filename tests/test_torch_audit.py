@@ -45,7 +45,7 @@ def expected_kernel_op(rule: str, backend: str, kind: str, packed: bool = True) 
 
 @pytest.fixture(scope="module")
 def audit():
-    return run_audit()
+    return run_audit(device="cpu")
 
 
 def _cell(audit, rule, backend, kind):
@@ -87,7 +87,7 @@ def test_one_kernel_op_per_learnable_layer_per_step(audit, cell):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("rule", HISTORY_RULES)
 def test_unpacked_history_cells_hold_the_bitplane_kernel(rule, kind):
-    state, spikes, step = cell_program(rule, "fused", kind, packed_history=False)
+    state, spikes, step = cell_program(rule, "fused", kind, device="cpu", packed_history=False)
     gm = trace(step, state, spikes)
     want = expected_kernel_op(rule, "fused", kind, packed=False)
     assert kernel_ops(gm) == {want: 1}
@@ -109,12 +109,12 @@ def test_float64_only_where_allowed_and_no_stale_entry(audit):
 
 def test_an_unlisted_float64_site_is_a_violation(monkeypatch):
     monkeypatch.delitem(FLOAT64_ALLOWLIST, ("plasticity/apply.py", "fc_delta"))
-    cell = audit_cell("itp", "fused", "fc")
+    cell = audit_cell("itp", "fused", "fc", device="cpu")
     assert any("plasticity/apply.py:fc_delta" in v for v in cell["violations"])
 
 
 def test_a_slice_of_the_matrix_reports_no_stale_entry():
-    r = run_audit(kinds=("engine",))
+    r = run_audit(kinds=("engine",), device="cpu")
     assert r["n_cells"] == 21 and r["n_violating"] == 0 and r["stale_allowlist"] == []
 
 
@@ -123,7 +123,7 @@ def test_audit_detects_trace_failure(monkeypatch):
         raise RuntimeError("synthetic trace failure")
 
     monkeypatch.setattr(graph_audit, "engine_step", boom)
-    cell = audit_cell("itp", "reference", "engine")
+    cell = audit_cell("itp", "reference", "engine", device="cpu")
     assert any("trace failed" in v for v in cell["violations"])
 
 
@@ -149,7 +149,7 @@ def _leaves(tree):
     ("itp", "fused", "conv2d"), ("exact", "fused", "conv1d"), ("imstdp", "reference", "fc"),
     ("mstdp", "sparse", "conv2d")])
 def test_trace_then_eager_is_bit_equal_to_eager_before_any_trace(rule, backend, kind):
-    state, spikes, step = cell_program(rule, backend, kind)
+    state, spikes, step = cell_program(rule, backend, kind, device="cpu")
     _clear_caches()
     before = _leaves(step(state, spikes))            # eager, before any trace
     _clear_caches()                                  # the trace builds every constant

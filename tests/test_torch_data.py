@@ -183,3 +183,50 @@ def test_prefetcher_reraises_the_source_error():
     with pytest.raises(RuntimeError, match="source failed"):
         next(pf)
     pf.close()
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (test_data.py's LM tests mirrored)
+# ---------------------------------------------------------------------------
+
+def test_zipf_tokens():
+    t = TD.zipf_tokens(torch.Generator().manual_seed(0), 4, 512, vocab=1000)
+    assert t.shape == (4, 512) and t.dtype == torch.int32
+    assert int(t.min()) >= 0 and int(t.max()) < 1000
+    # zipf: low ids much more frequent
+    flat = t.numpy().ravel()
+    assert (flat < 10).mean() > (flat >= 500).mean()
+    again = TD.zipf_tokens(torch.Generator().manual_seed(0), 4, 512, vocab=1000)
+    assert torch.equal(t, again)
+
+
+def test_zipf_marginal_matches_reference_law():
+    """Both packages draw ids from p(r) ∝ (r + 1)^-1.1 (streams differ, the
+    law does not): the id-0 share and the share of ids below 10 agree."""
+    t = TD.zipf_tokens(torch.Generator().manual_seed(1), 8, 4096, vocab=1000).numpy().ravel()
+    j = np.asarray(JD.zipf_tokens(jax.random.PRNGKey(1), 8, 4096, vocab=1000)).ravel()
+    p = np.arange(1, 1001, dtype=np.float64) ** -1.1
+    p /= p.sum()
+    for share, want in (((t == 0).mean(), p[0]), ((t < 10).mean(), p[:10].sum())):
+        assert abs(share - want) < 0.01
+    assert abs((t < 10).mean() - (j < 10).mean()) < 0.02
+
+
+def test_lm_batches_labels_shifted():
+    spec = TD.LMBatchSpec(batch=2, seq=16, vocab=100)
+    b = next(TD.lm_batches(torch.Generator().manual_seed(0), spec))
+    assert torch.equal(b["labels"][:, :-1], b["tokens"][:, 1:])
+    assert (b["labels"][:, -1] == -1).all() and b["labels"].dtype == torch.int32
+    stream = list(TD.lm_batches(torch.Generator().manual_seed(0), spec, n_steps=3))
+    assert len(stream) == 3 and torch.equal(stream[0]["tokens"], b["tokens"])
+    assert not torch.equal(stream[1]["tokens"], stream[0]["tokens"])
+
+
+def test_host_shard():
+    batch = {"tokens": torch.arange(8)[:, None]}
+    s0 = TD.host_shard(batch, 0, 2)
+    s1 = TD.host_shard(batch, 1, 2)
+    assert s0["tokens"].ravel().tolist() == [0, 1, 2, 3]
+    assert s1["tokens"].ravel().tolist() == [4, 5, 6, 7]
+    ref = JD.host_shard({"tokens": jnp.arange(8)[:, None]}, 1, 2)
+    assert np.asarray(ref["tokens"]).ravel().tolist() == s1["tokens"].ravel().tolist()

@@ -1423,3 +1423,124 @@ def test_traced_fused_cell_runs_on_card_bit_equal_to_eager(cuda, rule, kind):
         assert launched == wrapper.launches - launched == n == 1
         for a, b in zip(leaves((eager, out_e)), leaves((graph, out_g))):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# LM training (ROADMAP item 18c)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("llama-3.2-vision-11b", "qwen1.5-32b", "yi-9b", "qwen3-0.6b", "qwen2-1.5b",
+            "hymba-1.5b", "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+            "musicgen-medium")
+LM_PERTURBED = {"scale", "bias", "bq", "bk", "bv", "q_norm", "k_norm", "gate_attn", "conv_b",
+                "d_skip", "dt_bias", "norm_scale", "up_bias", "down_bias"}
+
+
+def _lm_case(arch, seed=0, dtype="float32"):
+    """(cfg, params on the CPU, batch on the CPU) of a smoke config: every
+    bias, norm scale, gate and SSM vector drawn away from its init."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.models.transformer import init_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+
+    def perturb(node):
+        return {k: perturb(v) if isinstance(v, dict) else
+                v + 0.3 * torch.randn(v.shape, generator=gen) if k in LM_PERTURBED else v
+                for k, v in node.items()}
+
+    params = perturb(init_model(gen, cfg, device="cpu"))
+    batch = next(lm_batches(gen, LMBatchSpec(batch=2, seq=16, vocab=cfg.vocab_size)))
+    if cfg.family == "vlm":
+        batch["vis_embed"] = torch.randn((2, 8, cfg.vis_dim), generator=gen) * 0.5
+    return cfg, params, batch
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+
+    if isinstance(tree, OPT.OptState):
+        return OPT.OptState(*(_to(x, device) for x in tree))
+    return tree_map(lambda a: a.to(device), tree)
+
+
+def _lm_step(cfg, po2_update=False, remat="none", use_kernel=True):
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    # the launcher's optimizer at --steps 100, as tests/test_torch_lm_train.py
+    return make_train_step(cfg, OPT.OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=100,
+                                                    po2_update=po2_update),
+                           TrainConfig(remat=remat), use_kernel=use_kernel)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """One float32 AdamW step on the card ≡ the port on the CPU within the LM
+    clause (the SSM and hybrid families within 2e-3): metrics, params and
+    moments."""
+    cfg, params, batch = _lm_case(arch)
+    step = _lm_step(cfg)
+    state = OPT.init_opt_state(params)
+    got = step(_to(params, cuda), _to(state, cuda), _to(batch, cuda))
+    want = step(params, state, batch)
+    tol = (dict(rtol=2e-3, atol=2e-3) if cfg.family in ("ssm", "hybrid")
+           else dict(rtol=1e-4, atol=1e-5))
+    for name in want[2]:
+        np.testing.assert_allclose(float(got[2][name]), float(want[2][name]),
+                                   rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(got[:2]), tree_leaves(want[:2])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **tol)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_repeats_bitwise(cuda, arch):
+    """The ITP-AdamW step twice from one state on the card: bit-equal (the
+    step's deterministic algorithms), and back to the process's setting."""
+    cfg, params, batch = _lm_case(arch, seed=1)
+    step = _lm_step(cfg, po2_update=True)
+    p, s, b = _to(params, cuda), _to(OPT.init_opt_state(params), cuda), _to(batch, cuda)
+    first, second = step(p, s, b), step(p, s, b)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(first), tree_leaves(second)))
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-1.3b"))
+def test_itp_adamw_step_on_card_kernels_equal_plain_quantiser(cuda, arch):
+    """ITP-AdamW on real gradients: the step with kernels 9-10 ≡ the step on
+    the plain quantiser, bitwise; one encode and one decode launch per leaf."""
+    cfg, params, batch = _lm_case(arch, seed=2, dtype="bfloat16")
+    p, s, b = _to(params, cuda), _to(OPT.init_opt_state(params), cuda), _to(batch, cuda)
+    PK.po2_encode.launches = PK.po2_decode.launches = 0
+    kern = _lm_step(cfg, po2_update=True)(p, s, b)
+    assert PK.po2_encode.launches == PK.po2_decode.launches == len(tree_leaves(params))
+    plain = _lm_step(cfg, po2_update=True, use_kernel=False)(p, s, b)
+    assert PK.po2_encode.launches == len(tree_leaves(params))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(kern), tree_leaves(plain)))
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-1.3b"))
+def test_remat_on_card_is_bit_equal(cuda, arch):
+    """``remat`` none / full / dots on the card: the bfloat16 step's outputs
+    bit-equal."""
+    cfg, params, batch = _lm_case(arch, seed=3, dtype="bfloat16")
+    p, s, b = _to(params, cuda), _to(OPT.init_opt_state(params), cuda), _to(batch, cuda)
+    runs = [tree_leaves(_lm_step(cfg, remat=remat)(p, s, b)) for remat in ("none", "full", "dots")]
+    for other in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], other))
+
+
+def test_lm_launcher_restart_on_card_is_bitwise(cuda, tmp_path):
+    """The launcher's LM mode on the card: a failure at step 5 restores the
+    step-4 checkpoint and ends bit-equal to an uninterrupted run."""
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--smoke", "--arch", "qwen2-moe-a2.7b", "--steps", "7", "--batch", "2", "--seq",
+            "32", "--ckpt-every", "2", "--po2-update", "--log-every", "10"]
+    ap = launch_train.build_parser()
+    s1, a = launch_train.lm_training(ap.parse_args(argv + ["--ckpt-dir", str(tmp_path / "a")]))
+    s2, b = launch_train.lm_training(ap.parse_args(argv + ["--ckpt-dir", str(tmp_path / "b"),
+                                                           "--inject-failure-at", "5"]))
+    assert s1["device"].startswith("cuda") and (s1["restarts"], s2["restarts"]) == (0, 1)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))

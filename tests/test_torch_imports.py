@@ -1,8 +1,9 @@
 """The port stands alone: no file under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package; the entry points (serving,
-training, the engine launcher, session restore and the sharded engine's
-process group) run on CUDA unless the caller passes device="cpu", and raise
-on a host without CUDA."""
+training, the engine launcher, session restore, the sharded engine's
+process group, the graph audit, LM training and the launcher's LM mode) run
+on CUDA unless the caller passes device="cpu", and raise on a host without
+CUDA."""
 import argparse
 import ast
 from pathlib import Path
@@ -10,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.analysis.graph_audit import audit_cell, cell_program, run_audit
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import EngineConfig, init_engine, init_engine_population
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import init_process_group
@@ -18,6 +21,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.launch.cli import sampler_for
 from repro_torch.models.snn import fault_csnn, init_snn
 from repro_torch.serve import ServeConfig, Server, SessionStore
+from repro_torch.train import OptimizerConfig, init_training
 from repro_torch.train.stdp_trainer import TrainerConfig, train_to_accuracy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,3 +109,27 @@ def test_engine_launcher_ckpt_and_grid_entry_points_default_to_cuda(tmp_path):
             make()
     engine.device = "cpu"
     assert launch_train.run_engine_training(engine)["device"] == "cpu"
+
+
+def test_audit_and_lm_training_entry_points_default_to_cuda(tmp_path):
+    """The graph audit's three functions, ``init_training`` and the
+    launcher's LM mode."""
+    cfg = get_smoke_config("qwen3-0.6b")
+    lm_argv = ["--smoke", "--steps", "1", "--batch", "1", "--seq", "8",
+               "--ckpt-dir", str(tmp_path)]
+    entry = (lambda: cell_program("itp", "fused", "engine"),
+             lambda: audit_cell("itp", "fused", "engine"),
+             lambda: run_audit(kinds=("engine",)),
+             lambda: init_training(torch.Generator(), cfg, OptimizerConfig()),
+             lambda: launch_train.main(lm_argv))
+    if torch.cuda.is_available():
+        params, _ = init_training(torch.Generator("cuda"), cfg, OptimizerConfig())
+        assert params["embed"]["tok"].device.type == "cuda"
+        return
+    for make in entry:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    params, state = init_training(torch.Generator(), cfg, OptimizerConfig(), device="cpu")
+    assert params["embed"]["tok"].device.type == "cpu" and state.step.device.type == "cpu"
+    assert audit_cell("itp", "fused", "engine", device="cpu")["violations"] == []
+    assert launch_train.main(lm_argv + ["--device", "cpu"])["device"] == "cpu"

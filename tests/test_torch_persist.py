@@ -249,11 +249,13 @@ def test_engine_mode_matches_reference_backend(rule, backend):
 
 
 def test_launcher_main_engine_mode_and_lm_refusal(capsys):
+    """The engine mode through ``main``; the LM mode's data-parallel mesh,
+    the next unported name (ROADMAP item 18d), is refused."""
     out = launch_train.main(["--engine", "--device", "cpu", "--backend", "fused",
                              "--replicas", "2", "--engine-pre", "16", "--engine-post", "8",
                              "--steps", "4"])
     assert out["steps"] == 4 and out["replicas"] == 2 and out["n_pre"] == 16
     assert "engine training [itp / fused / cpu]" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        launch_train.main(["--device", "cpu"])
-    assert "item 18" in capsys.readouterr().err
+        launch_train.main(["--device", "cpu", "--smoke", "--data", "2"])
+    assert "item 18d" in capsys.readouterr().err

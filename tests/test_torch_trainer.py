@@ -259,5 +259,8 @@ def test_launcher_trains_a_net_on_cpu(capsys):
 
 
 def test_launcher_needs_the_snn_mode():
+    """Without ``--snn`` or ``--engine`` the launcher runs the LM mode (ROADMAP
+    item 18c); its next unported name, a data-parallel mesh (item 18d), is
+    refused."""
     with pytest.raises(SystemExit):
-        TL.main(["--device", "cpu"])
+        TL.main(["--device", "cpu", "--smoke", "--data", "2"])

@@ -329,6 +329,13 @@ LM_TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=5)
 LM_LAUNCH = ["--smoke", "--arch", LM_DENSE, "--steps", "12", "--batch", "4", "--seq", "64",
              "--ckpt-every", "4", "--po2-update", "--log-every", "4"]
 LM_LAUNCH_FAIL_AT = 7
+# the lm_sharded phase (ROADMAP item 18d): qwen3-0.6b at lm_train's shape on a
+# 1 x 1 NCCL mesh under fsdp (steps, then one profiled step) against the
+# unsharded step, the pod branch on a 1 x 1 x 1 mesh against the unsharded
+# step fed the plain po2 round trip of its gradients, and the launcher's
+# --data 1 --model 1 at lm_train's launcher settings against --data 0
+LM_SHARDED_STEPS = 3
+LM_POD_STEPS = 2
 DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
 DRIFT_RMSE_TOL = 5e-4
 # bytes per element, inputs read once and outputs written once: kernel 7 reads
@@ -2794,6 +2801,259 @@ def _lm_train_launcher(device, smi: str) -> dict:
     return {"clean": clean, "failed": failed}
 
 
+# the dry run's count of one lm_train step, in a process of its own (a
+# ``fake`` group cannot share a process with the NCCL group), on the CPU
+_DRYRUN_COUNT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import plan_cell
+from repro_torch.train import OptimizerConfig, TrainConfig
+import torch.distributed as dist
+
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+opt = json.loads(sys.argv[4])
+dryrun._fake_group(1)
+try:
+    mesh = dryrun._mesh_for(False, (1, 1))
+    plan = plan_cell(get_config(arch), ShapeSpec("lm_train", seq, batch, "train"), mesh,
+                     opt_cfg=OptimizerConfig(**opt, po2_update=True),
+                     train_cfg=TrainConfig(remat="full"))
+    run = dryrun.run_plan(plan, mesh)
+finally:
+    dist.destroy_process_group()
+print(json.dumps(run))
+"""
+
+
+def _start_dryrun_count() -> subprocess.Popen:
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN_COUNT, LM_DENSE, str(LM_TRAIN[0]),
+                             str(LM_TRAIN[1]), json.dumps(LM_TRAIN_OPT)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _timed_steps(step, params, opt, batch_for, n: int, counters, *, profile_last=False):
+    """``n`` steps from ``(params, opt)``: the walls of steps 2.. (the first
+    warms up), the peak GB, the launches of ``counters`` (set to 0 first),
+    the metrics of every step and, with ``profile_last``, one more step
+    under the profiler ``(prof, seconds)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics = [], []
+    for k in range(n):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch_for(k))
+        metrics.append({name: float(v) for name, v in m.items()})   # the step is done
+        if k:
+            walls.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = None
+    if profile_last:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch_for(n))
+            float(m["loss"])
+            prof = (p, time.perf_counter() - t0)
+    return params, opt, {"walls": walls, "peak_gb": peak, "launches": launches,
+                         "metrics": metrics, "prof": prof}
+
+
+def _lm_sharded_steps(device, mesh, smi: str) -> dict:
+    """(a) the fsdp step on the 1 x 1 mesh against the unsharded step, and
+    (b) the pod branch on the 1 x 1 x 1 mesh against the unsharded step fed
+    the plain po2 round trip of its gradients, each from seed 90."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.kernels.po2_quant import kernel as PK
+    from repro_torch.kernels.po2_quant.ref import po2_roundtrip_ref
+    from repro_torch.launch.mesh import describe, make_debug_mesh
+    from repro_torch.train import (OptimizerConfig, TrainConfig, adamw_update, init_training,
+                                   make_train_step)
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(LM_DENSE)
+    ocfg = OptimizerConfig(**LM_TRAIN_OPT, po2_update=True)
+    tcfg = TrainConfig(remat="full")
+    spec = LMBatchSpec(batch=LM_TRAIN[0], seq=LM_TRAIN[1], vocab=cfg.vocab_size)
+
+    def batch_for(step):
+        return next(lm_batches(torch.Generator(device).manual_seed(1000 + step), spec,
+                               n_steps=1))
+
+    def draw(m=None):
+        return init_training(torch.Generator(device=device).manual_seed(90), cfg, ocfg,
+                             mesh=m, device=device)
+
+    def gathered(params, opt):
+        return {"params": gather_tree(params), "mu": gather_tree(opt.mu),
+                "nu": gather_tree(opt.nu)}
+
+    counters = (PK.po2_encode, PK.po2_decode)
+    out = {}
+
+    # (a) the single-pod fsdp step, then the unsharded one from the same draw
+    params, opt = draw(mesh)
+    n_leaves = len(tree_leaves(params))
+    params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh), params, opt,
+                                   batch_for, LM_SHARDED_STEPS, counters, profile_last=True)
+    prof, prof_s = sh.pop("prof")
+    sh["busy"] = _report_profile(prof, prof_s, f"one {LM_DENSE} ITP-AdamW train step on the "
+                                 f"{describe(mesh)} mesh ({LM_TRAIN[0]} x {LM_TRAIN[1]}, "
+                                 f"remat full)")
+    del prof
+    end_sharded = _to_device(gathered(params, opt), torch.device("cpu"))
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt = draw()
+    params, opt, un = _timed_steps(make_train_step(cfg, ocfg, tcfg), params, opt, batch_for,
+                                   LM_SHARDED_STEPS + 1, counters)
+    un.pop("prof")
+    # the unsharded run took one step more (the sharded run's profiled step)
+    same = (_bitwise(end_sharded, _to_device({"params": params, "mu": opt.mu, "nu": opt.nu},
+                                             torch.device("cpu")))
+            and sh["metrics"] == un["metrics"][:LM_SHARDED_STEPS])
+    want = {fn.__name__: n_leaves * LM_SHARDED_STEPS for fn in counters}
+    out["fsdp"] = dict(sh, same=same, unsharded=un, want=want)
+    _phase("lm_sharded", f"{LM_DENSE} on the {describe(mesh)} NCCL mesh (fsdp, DTensor state, "
+           f"gathered on use) at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}, ITP-AdamW, remat full: "
+           f"{LM_SHARDED_STEPS} steps + 1 profiled == the unsharded step (params, moments, "
+           f"metrics) bitwise {same}; step ms sharded "
+           f"{[round(w * 1e3, 2) for w in sh['walls']]} / unsharded "
+           f"{[round(w * 1e3, 2) for w in un['walls']]}; peak {sh['peak_gb']:.3f} GB / "
+           f"{un['peak_gb']:.3f} GB; busy share {sh['busy']}; po2 launches {sh['launches']} "
+           f"(want {want}) [{smi}]")
+    if not same or sh["launches"] != want:
+        raise SystemExit(f"lm_sharded: the 1 x 1 fsdp step: bitwise {same}, launches "
+                         f"{sh['launches']} (want {want})")
+    del params, opt, end_sharded
+    torch.cuda.empty_cache()
+
+    # (b) the pod branch: pod-local gradients, the po2 mean over one pod
+    pod_mesh = make_debug_mesh(1, 1, pod=1, device=device)
+    params, opt = draw(pod_mesh)
+    params, opt, pod = _timed_steps(
+        make_train_step(cfg, ocfg, TrainConfig(remat="full", pod_compression=True), pod_mesh),
+        params, opt, batch_for, LM_POD_STEPS, counters)
+    pod.pop("prof")
+    end_pod = _to_device(gathered(params, opt), torch.device("cpu"))
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt = draw()
+
+    def roundtrip_step(params, opt, batch):
+        _, metrics, grads = loss_and_grads(params, cfg, batch, train_cfg=tcfg)
+        grads = tree_map(po2_roundtrip_ref, grads)          # the plain versions
+        new_p, new_o, om = adamw_update(ocfg, params, grads, opt)
+        return new_p, new_o, dict(metrics, **om)
+
+    metrics = []
+    for k in range(LM_POD_STEPS):
+        params, opt, m = roundtrip_step(params, opt, batch_for(k))
+        metrics.append({name: float(v) for name, v in m.items()})
+    same = (_bitwise(end_pod, _to_device({"params": params, "mu": opt.mu, "nu": opt.nu},
+                                         torch.device("cpu")))
+            and pod["metrics"] == metrics)
+    want = {fn.__name__: 2 * n_leaves * LM_POD_STEPS for fn in counters}
+    out["pod"] = dict(pod, same=same, want=want)
+    _phase("lm_sharded", f"{LM_DENSE} on the {describe(pod_mesh)} mesh, pod_compression: "
+           f"{LM_POD_STEPS} steps == the unsharded step fed the plain po2 round trip of its "
+           f"gradients bitwise {same}; step ms {[round(w * 1e3, 2) for w in pod['walls']]}; "
+           f"po2 launches {pod['launches']} (want {want}: the pod mean's encode and decode "
+           f"and ITP-AdamW's, per leaf per step) [{smi}]")
+    if not same or pod["launches"] != want:
+        raise SystemExit(f"lm_sharded: the pod branch: bitwise {same}, launches "
+                         f"{pod['launches']} (want {want})")
+    del params, opt, end_pod
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_mesh_launcher(device, smi: str) -> dict:
+    """``launch.train``'s LM mode with ``--data 1 --model 1`` (a one-rank
+    NCCL group in this process) and a failure injected, against ``--data 0``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_", dir=ROOT / "build"))
+    ap = launch_train.build_parser()
+    argv = LM_LAUNCH + ["--device", str(device), "--inject-failure-at", str(LM_LAUNCH_FAIL_AT)]
+    try:
+        plain, a = launch_train.lm_training(ap.parse_args(argv + ["--ckpt-dir",
+                                                                  str(scratch / "a")]))
+        meshed, b = launch_train.mesh_lm_training(ap.parse_args(
+            argv + ["--ckpt-dir", str(scratch / "b"), "--data", "1", "--model", "1"]))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    b = {"params": b["params"], "opt": b["opt"]}
+    same = _bitwise(a, b) and plain["final_loss"] == meshed["final_loss"]
+    _phase("lm_sharded", f"launch.train {' '.join(argv)} --data 1 --model 1: mesh "
+           f"{meshed['mesh']}, restarts {meshed['restarts']}, {meshed['tokens_per_s']:.1f} "
+           f"tokens/s; final state bit-equal to --data 0 {same} [{smi}]")
+    if not (same and meshed["restarts"] == 1 and plain["restarts"] == 1):
+        raise SystemExit(f"lm_sharded: the launcher's mesh mode: bit-equal {same}, restarts "
+                         f"{meshed['restarts']} / {plain['restarts']}")
+    return {"plain": plain, "mesh": meshed}
+
+
+def phase_lm_sharded(device, smi: str) -> dict:
+    """Sharded LM training (ROADMAP item 18d) on the card: (a) the fsdp step
+    on a 1 x 1 NCCL mesh and (b) the pod branch on a 1 x 1 x 1 mesh, each
+    against the unsharded step; (c) their times beside the dry run's flop
+    count of the step; (d) the launcher's mesh mode.  The group is
+    initialised here on a free localhost port and destroyed before (d),
+    which starts its own."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import init_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t0 = time.perf_counter()
+    counting = _start_dryrun_count()
+    port = _free_port()
+    init_process_group(device, rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        out = _lm_sharded_steps(device, make_debug_mesh(1, 1, device=device), smi)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["launcher"] = _lm_mesh_launcher(device, smi)
+    stdout, stderr = counting.communicate(timeout=600)
+    if counting.returncode != 0:
+        raise SystemExit(f"lm_sharded: the dry run's count failed: {stderr[-2000:]}")
+    count = json.loads(stdout.strip().splitlines()[-1])
+    flops = count["cost"]["flops"]
+    a = out["fsdp"]
+    step_s = statistics.median(a["walls"])
+    out["dryrun"] = {"flops": flops, "collectives": count["collectives"]["total_operand_bytes"],
+                     "count_s": count["seconds"],
+                     "tflops_sharded": flops / step_s / 1e12,
+                     "tflops_unsharded": flops / statistics.median(a["unsharded"]["walls"]) / 1e12}
+    _phase("lm_sharded", f"launch.dryrun's count of one {LM_DENSE} step at B={LM_TRAIN[0]} x "
+           f"S={LM_TRAIN[1]} on a 1 x 1 fake mesh: {flops:.4e} flops (counted in "
+           f"{count['seconds']:.1f} s on the host); achieved {out['dryrun']['tflops_sharded']:.2f} "
+           f"TFLOP/s sharded, {out['dryrun']['tflops_unsharded']:.2f} unsharded [{smi}]")
+    _phase("lm_sharded", f"phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_lm_train(device, smi: str) -> dict:
     """LM training with ITP-AdamW (ROADMAP item 18c) on the card."""
     import torch
@@ -2888,6 +3148,7 @@ def main() -> int:
     sharded = phase_sharded(device)
     lm = phase_lm(device, smi)
     lm_train = phase_lm_train(device, smi)
+    lm_sharded = phase_lm_sharded(device, smi)
     # the persist phase's serving loads launch at serving's shape; the restart
     # runner and the engine launcher at the population's, the sharded engine
     # at its tile's
@@ -2926,6 +3187,11 @@ def main() -> int:
     for name, n in lm_train["full"]["launches"].items():   # ITP-AdamW at full width
         launches[name] += n
         kernels[name].setdefault("launches_by_shape", {})["lm_train"] = n
+    for run in ("fsdp", "pod"):        # the sharded step and the pod mean at full width
+        for name, n in lm_sharded[run]["launches"].items():
+            launches[name] += n
+            by_shape = kernels[name].setdefault("launches_by_shape", {})
+            by_shape["lm_sharded"] = by_shape.get("lm_sharded", 0) + n
     e = sparse_mstdp["engine"]
     _phase("sparse_mstdp", f"sparse update at 784x100 (density pre {e['pre_density']:.4f}, "
            f"post {e['post_density']:.4f}): {e['sparse_device_ms']:.5f} ms device against "
@@ -2957,6 +3223,12 @@ def main() -> int:
     _phase("lm_train", f"{LM_DENSE} ITP-AdamW training at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}: "
            f"{f['step_ms']:.2f} ms a step, {f['tok_s']:.1f} tokens/s, peak {f['peak_gb']:.3f} "
            f"GB, busy share {f['busy']} [{smi}]")
+    a = lm_sharded["fsdp"]
+    _phase("lm_sharded", f"{LM_DENSE} on a 1 x 1 mesh at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}: "
+           f"{statistics.median(a['walls']) * 1e3:.2f} ms a step sharded, "
+           f"{statistics.median(a['unsharded']['walls']) * 1e3:.2f} ms unsharded, peak "
+           f"{a['peak_gb']:.3f} / {a['unsharded']['peak_gb']:.3f} GB, busy share {a['busy']}, "
+           f"{lm_sharded['dryrun']['tflops_sharded']:.2f} TFLOP/s by the dry run's count [{smi}]")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -26,6 +26,15 @@ either package restores in the other:
 A Python ``int`` leaf (the port's ``SessionState.t``) is saved as a 0-d
 int32 array, as the reference stores its step counters, and restored as an
 ``int``.
+
+Sharded state (a tree holding DTensors, ROADMAP item 18d) is saved whole:
+:class:`AsyncCheckpointer` gathers every DTensor leaf on every rank, on the
+caller's thread (a collective never runs on the writer thread), rank 0
+writes, and each :meth:`~AsyncCheckpointer.wait` ends in a barrier, so no
+rank reads a checkpoint before it is committed.  A DTensor target leaf is
+restored from the whole array onto its own placements, so a checkpoint
+written on one mesh restores on another, on one process or in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 Tree = Any
 
@@ -78,7 +89,10 @@ def _host(leaf) -> np.ndarray:
 
 
 def _snapshot(leaf) -> np.ndarray:
-    """A host copy of a leaf that later in-place writes cannot reach."""
+    """A host copy of a leaf that later in-place writes cannot reach (a
+    DTensor gathered whole: a collective, on every rank)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(_host(leaf), copy=True)
@@ -167,6 +181,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Tree, *,
         if name not in by_name:
             raise IOError(f"checkpoint missing leaf {name}")
         arr = _verify_and_load(path, by_name[name])
+        if isinstance(tgt, DTensor):
+            from repro_torch.distributed.sharding import distribute_like
+            full = torch.from_numpy(arr).to(tgt.device if device is None else device)
+            return distribute_like(full, tgt.device_mesh, tgt.placements)
         if isinstance(tgt, torch.Tensor):
             return torch.from_numpy(arr).to(tgt.device if device is None else device)
         if isinstance(tgt, int):
@@ -189,7 +207,9 @@ class AsyncCheckpointer:
     tensor waits for its producer here) and hands the disk write to a
     thread that touches numpy arrays only; a second :meth:`save` while one
     is in flight first waits for it to commit.  A write's exception is
-    raised by the next :meth:`wait` or :meth:`save`.
+    raised by the next :meth:`wait` or :meth:`save`.  A sharded tree is
+    written by rank 0 alone, and every rank calls :meth:`save` and
+    :meth:`wait` at the same points.
     """
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
@@ -197,10 +217,14 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._sharded = False
 
     def save(self, step: int, tree: Tree, extra: dict | None = None) -> None:
         self.wait()
+        self._sharded = any(isinstance(leaf, DTensor) for _, leaf in _leaf_paths(tree))
         host_tree = map_named_leaves(lambda _, leaf: _snapshot(leaf), tree)
+        if self._sharded and dist.get_rank() != 0:
+            return
 
         def work():
             try:
@@ -216,6 +240,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            dist.barrier()
+            self._sharded = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -20,6 +20,7 @@ import functools
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 from repro_torch.kernels.po2_quant.kernel import po2_decode, po2_encode
 from repro_torch.tree import tree_leaves, tree_map
@@ -34,16 +35,22 @@ def _decode_int8(c: torch.Tensor) -> torch.Tensor:
     return po2_decode((c.to(torch.int32) & 0xFF).contiguous())
 
 
+# ``all_gather_tensor`` took this name in newer PyTorch
+_all_gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+
+
+def _wait(x: torch.Tensor) -> torch.Tensor:
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
 def _pod_mean_one(g: torch.Tensor, group) -> torch.Tensor:
     wire = _encode_int8(g)
-    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, wire, group=group)                  # n_pod × int8
-    return torch.mean(_decode_int8(torch.stack(parts)), dim=0).to(g.dtype)
+    parts = _wait(_all_gather(wire[None], 0, group))   # n_pod × int8
+    return torch.mean(_decode_int8(parts), dim=0).to(g.dtype)
 
 
 def _pod_mean_plain(g: torch.Tensor, group) -> torch.Tensor:
-    total = g.clone()
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    total = _wait(funcol.all_reduce(g, "sum", group))
     return total / dist.get_world_size(group)
 
 
@@ -52,6 +59,7 @@ def pod_mean_tree(grads, *, compress: bool, group=None):
     world), po2-compressed or plain.  Every rank calls it with a tree of
     the same shapes and gets the same mean back."""
     one = _pod_mean_one if compress else _pod_mean_plain
+    group = dist.group.WORLD if group is None else group
     return tree_map(functools.partial(one, group=group), grads)
 
 

@@ -15,7 +15,10 @@ with the reference's control loop:
   * :func:`elastic_reshard` moves a restored state onto another device.
 
 Each step's metrics are read back as Python floats for the log, one host
-sync per step where a metric is a device tensor, as in the reference.
+sync per step where a metric is a device tensor, as in the reference.  On
+a mesh every rank runs the loop with the same schedule: a sharded state is
+gathered for each checkpoint, rank 0 writes it, and a restore puts every
+rank's shards back (``checkpoint``).
 """
 from __future__ import annotations
 

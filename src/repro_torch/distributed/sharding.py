@@ -15,17 +15,43 @@ holding pre tile ``d`` and post tile ``m``.  Each rank has two subgroups:
 
 The process-group backend follows the device, NCCL for CUDA and gloo for
 the CPU: :func:`init_process_group` picks it from the device, and
-:func:`make_grid` refuses a world whose backend is not the device's.  The
-reference's LM sharding rules (``param_spec_for``, ``kv_cache_spec``, …)
-come with the LM stack (ROADMAP queue 1 item 18).
+:func:`make_grid` refuses a world whose backend is not the device's.
+
+The LM half (ROADMAP item 18d) keeps the reference's rules word for word:
+logical-axis specs → mesh :class:`PartitionSpec` for every parameter, batch
+and decode cache, under the sharding profiles ``fsdp | replicated | dp |
+dp_zero3`` (scheme: batch → ``('pod','data')``, ``'tp'`` → ``'model'``,
+``'fsdp'`` → ``'data'``, experts → ``'model'`` when they divide it, every
+axis behind a divisibility guard).  The rule functions take any mesh with
+``.shape`` (name → size) and ``.axis_names``, or a
+``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``.  A
+spec becomes DTensor placements through :func:`placements_for`, and
+:func:`distribute_tree` places a tree of full tensors with no
+communication, each rank cutting its own shard.
+
+GSPMD partitions the reference's compute from these specs; the port stores
+state by them and gathers each leaf on use (``train.train_step``), so
+:func:`constrain` is an identity until tensor-parallel compute (ROADMAP item
+19).  The batch reductions GSPMD inserts into a sharded loss (the token
+count, the MoE balance means) are :func:`batch_sum` and :func:`batch_mean`
+over the axes :func:`use_batch_reduction` names.  The reference's
+``shard_map_compat`` has no counterpart: a region manual over ``'pod'`` is
+:func:`use_manual_axes`, under which specs drop ``'pod'`` as the
+reference's ``_strip_manual`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+import re
+import threading
+from collections.abc import Mapping
+from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import resolve_device
 
@@ -111,3 +137,485 @@ def make_grid(data: int, model: int, *, device: torch.device | str) -> EngineGri
     rank = dist.get_rank()
     return EngineGrid(data=data, model=model, rank=rank, device=dev,
                       row_group=rows[rank // model], col_group=cols[rank % model])
+
+
+# ---------------------------------------------------------------------------
+# LM sharding rules (the reference's LM half, ROADMAP item 18d)
+# ---------------------------------------------------------------------------
+
+_state = threading.local()
+
+
+def _canon(entry):
+    if isinstance(entry, (tuple, list)):
+        entry = tuple(entry)
+        return entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class PartitionSpec(tuple):
+    """A spec: one entry per tensor dim, each ``None``, a mesh axis name or
+    a tuple of names (a one-name tuple is that name, as in JAX)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_canon(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(repr(e) for e in self) + ")"
+
+
+P = PartitionSpec
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The mesh's axis names (a DeviceMesh's ``mesh_dim_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """Axis name → size, for a shape-only mesh or a DeviceMesh."""
+    shape = mesh.shape
+    if isinstance(shape, Mapping):
+        return dict(shape)
+    return dict(zip(axis_names(mesh), shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.spec, self.mesh)
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def sharding_profile() -> str:
+    """Parallelism profile for weights/activations.
+
+    * 'fsdp'       — ZeRO-3: weights sharded over 'data', TP over 'model'
+                     (the default).
+    * 'replicated' — DP+TP: weights replicated over 'data'.
+    * 'dp'         — pure data parallelism: weights fully replicated,
+                     batch sharded over ('data','model') jointly.
+    * 'dp_zero3'   — pure-DP compute with weights/opt sharded over the
+                     (compute-idle) 'model' axis, gathered on use.
+
+    Until tensor-parallel compute (ROADMAP item 19) the port gathers every
+    weight on use, so under 'fsdp' and 'replicated' the 'model' ranks
+    compute the same batch shard; under 'dp' and 'dp_zero3' the model axis
+    carries batch and no work is duplicated.
+    """
+    return getattr(_state, "profile", "fsdp")
+
+
+@contextlib.contextmanager
+def use_sharding_profile(profile: str):
+    prev = sharding_profile()
+    _state.profile = profile
+    try:
+        yield
+    finally:
+        _state.profile = prev
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def _manual_axes() -> frozenset:
+    """Mesh axes of the enclosing manual region (:func:`use_manual_axes`)."""
+    return getattr(_state, "manual", frozenset())
+
+
+@contextlib.contextmanager
+def use_manual_axes(axes):
+    """The region the reference runs inside ``shard_map`` manual over
+    ``axes`` (the multi-pod step's pod block): specs resolved here drop
+    those axes, since each rank's shard has no such dimension."""
+    prev = _manual_axes()
+    _state.manual = frozenset(axes)
+    try:
+        yield
+    finally:
+        _state.manual = prev
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    if sharding_profile() in ("dp", "dp_zero3"):
+        # pure DP: the model axis carries batch too
+        return (("pod", "data", "model") if "pod" in axis_names(mesh)
+                else ("data", "model"))
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
+
+
+def _resolve_axis(logical, mesh):
+    """logical axis name → physical mesh axis (or tuple), or None."""
+    if logical is None:
+        return None
+    if logical == "batch":
+        return batch_axes(mesh)
+    profile = sharding_profile()
+    if logical == "tp":
+        return None if profile in ("dp", "dp_zero3") else "model"
+    if logical == "fsdp":
+        if profile == "fsdp":
+            return "data"
+        if profile == "dp_zero3":
+            return "model"
+        return None
+    return logical
+
+
+def _axis_size(ax, mesh) -> int:
+    shape = mesh_shape(mesh)
+    if isinstance(ax, tuple):
+        n = 1
+        for a in ax:
+            n *= shape[a]
+        return n
+    return shape[ax]
+
+
+def _strip_manual(ax, manual):
+    if ax is None:
+        return None
+    if isinstance(ax, tuple):
+        kept = tuple(a for a in ax if a not in manual)
+        return kept if kept else None
+    return None if ax in manual else ax
+
+
+def logical_to_spec(spec: Sequence, shape: tuple[int, ...], mesh) -> PartitionSpec:
+    """Right-aligned logical spec → PartitionSpec with divisibility guard.
+
+    ``spec`` names the trailing dims; leading (layer-stack) dims replicate.
+    """
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        spec = spec[len(spec) - len(shape):]
+    pad = len(shape) - len(spec)
+    manual = _manual_axes()
+    out = [None] * pad
+    for dim, logical in zip(shape[pad:], spec):
+        ax = _strip_manual(_resolve_axis(logical, mesh), manual)
+        if ax is not None and dim % _axis_size(ax, mesh) != 0:
+            ax = None
+        out.append(ax)
+    return P(*out)
+
+
+# ordered (regex on '/'-joined path, logical spec for the trailing dims)
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"embed/tok$", ("tp", "fsdp")),
+    (r"embed/out$", ("fsdp", "tp")),
+    (r"attn/wq$", ("fsdp", "tp")),
+    (r"attn/wk$", ("fsdp", "tp")),
+    (r"attn/wv$", ("fsdp", "tp")),
+    (r"attn/wo$", ("tp", "fsdp")),
+    (r"attn/b[qkv]$", ("tp",)),
+    (r"mlp/(gate|up)$", ("fsdp", "tp")),
+    (r"mlp/down$", ("tp", "fsdp")),
+    (r"mlp/up_bias$", ("tp",)),
+    (r"moe/router$", ("fsdp", None)),
+    (r"moe/(gate|up)$", ("ep", "fsdp", "tp")),     # resolved per arch below
+    (r"moe/down$", ("ep", "tp", "fsdp")),
+    (r"shared/(gate|up)$", ("fsdp", "tp")),
+    (r"shared/down$", ("tp", "fsdp")),
+    (r"shared/route$", (None, None)),
+    (r"ssm/wz$", ("fsdp", "tp")),
+    (r"ssm/wxbc$", ("fsdp", "tp")),
+    (r"ssm/wdt$", ("fsdp", None)),
+    (r"ssm/conv_w$", (None, "tp")),
+    (r"ssm/conv_b$", ("tp",)),
+    (r"ssm/norm_scale$", ("tp",)),
+    (r"ssm/out_proj$", ("tp", "fsdp")),
+]
+
+
+def param_spec_for(path_str: str, shape: tuple[int, ...], cfg, mesh) -> PartitionSpec:
+    for pattern, spec in _PARAM_RULES:
+        if re.search(pattern, path_str):
+            if pattern == r"embed/tok$" and "pod" in axis_names(mesh):
+                # the reference drops the fsdp factor of the token table on a
+                # pod mesh (a workaround for an XLA partitioner crash that
+                # torch does not have); kept so the spec tables are equal
+                spec = ("tp", None)
+            if "ep" in spec:
+                # expert-parallel when E (padded) divides the model axis,
+                # else the expert dim replicates and TP shards inside
+                if cfg.experts_alloc % mesh_shape(mesh)["model"] == 0:
+                    spec = tuple("tp" if s == "ep" else
+                                 (None if s == "tp" else s) for s in spec)
+                else:
+                    spec = tuple(None if s == "ep" else s for s in spec)
+            return logical_to_spec(spec, shape, mesh)
+    return P()  # norms, scalars, small vectors: replicate
+
+
+def map_with_path(fn, tree, path: tuple = ()):
+    """``fn('/'-joined path, leaf)`` on every leaf of a tree of dicts,
+    lists and tuples (NamedTuples kept; a :class:`PartitionSpec` is a
+    leaf); ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, PartitionSpec):
+        return fn("/".join(path), tree)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], path + (str(k),)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, getattr(tree, f), path + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, x, path + (str(i),)) for i, x in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def param_spec_tree(cfg, params_shape, mesh):
+    """Tree of :class:`PartitionSpec` matching ``params_shape``."""
+    return map_with_path(lambda path, leaf: param_spec_for(path, tuple(leaf.shape), cfg, mesh),
+                         params_shape)
+
+
+def param_shardings(cfg, params, mesh):
+    """Tree of :class:`NamedSharding` matching ``params``."""
+    return map_with_path(
+        lambda path, leaf: NamedSharding(mesh, param_spec_for(path, tuple(leaf.shape), cfg,
+                                                              mesh)), params)
+
+
+def constrain(x: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    """An activation sharding hint: the identity.  The reference's GSPMD
+    splits the compute here; the port gathers weights on use and computes
+    each rank's batch shard whole until ROADMAP item 19."""
+    return x
+
+
+def batch_spec(mesh, ndim: int, *, seq_axis=None) -> PartitionSpec:
+    """(B, ...) arrays: batch over ('pod','data'); optional seq over model."""
+    out: list[Any] = [batch_axes(mesh)] + [None] * (ndim - 1)
+    if seq_axis is not None:
+        out[seq_axis] = "model"
+    return P(*out)
+
+
+def _div(dim: int, ax, mesh) -> bool:
+    return ax is not None and dim % _axis_size(ax, mesh) == 0
+
+
+def _batch_ax(dim: int, mesh):
+    """Largest batch sharding ('pod','data') → ('data',) → None that divides."""
+    full = batch_axes(mesh)
+    if _div(dim, full, mesh):
+        return full
+    if _div(dim, ("data",), mesh):
+        return ("data",)
+    return None
+
+
+def kv_cache_spec(shape: tuple[int, ...], mesh) -> PartitionSpec:
+    """(L, B, T, K, hd) KV cache (or (L,B,T,K,1) scale) sharding.
+
+    KV heads on 'model' when they divide it, else the context axis T on
+    'model' (sequence parallelism); batch over ('pod','data') when it
+    divides, and when it does not (B=1 latency decode) T also over 'data'.
+    """
+    L, B, T, K = shape[:4]
+    b_ax = _batch_ax(B, mesh)
+    k_ax = "model" if _div(K, "model", mesh) else None
+    t_ax = None
+    if k_ax is None and _div(T, ("model",), mesh):
+        t_ax = ("model",)
+    if b_ax is None:
+        if t_ax == ("model",) and _div(T, ("data", "model"), mesh):
+            t_ax = ("data", "model")
+        elif t_ax is None and _div(T, ("data",), mesh):
+            t_ax = ("data",)
+    rest = [None] * (len(shape) - 4)
+    return P(None, b_ax, t_ax, k_ax, *rest)
+
+
+def ssm_cache_specs(conv_shape: tuple[int, ...], state_shape: tuple[int, ...],
+                    mesh) -> tuple[PartitionSpec, PartitionSpec]:
+    """SSM decode caches: conv (L,B,W,conv_dim), state (L,B,g,r,N,P); the
+    channels and the head axis r shard on 'model' when divisible."""
+    Lb, B, W, conv_dim = conv_shape
+    b_ax = _batch_ax(B, mesh)
+    conv_spec = P(None, b_ax, None, "model" if _div(conv_dim, "model", mesh) else None)
+    _, Bs, g, r = state_shape[:4]
+    r_ax = "model" if _div(r, "model", mesh) else None
+    state_spec = P(None, _batch_ax(Bs, mesh), None, r_ax, None, None)
+    return conv_spec, state_spec
+
+
+def decode_cache_shardings(cache, mesh):
+    """:class:`NamedSharding` tree matching a ``DecodeCache``."""
+    def ns(spec):
+        return NamedSharding(mesh, spec)
+
+    def kv_shardings(kv):
+        if kv is None:
+            return None
+        return type(kv)(
+            k=ns(kv_cache_spec(tuple(kv.k.shape), mesh)),
+            v=ns(kv_cache_spec(tuple(kv.v.shape), mesh)),
+            k_scale=(ns(kv_cache_spec(tuple(kv.k_scale.shape), mesh))
+                     if kv.k_scale is not None else None),
+            v_scale=(ns(kv_cache_spec(tuple(kv.v_scale.shape), mesh))
+                     if kv.v_scale is not None else None))
+
+    def ssm_shardings(ssm):
+        if ssm is None:
+            return None
+        conv_spec, state_spec = ssm_cache_specs(tuple(ssm.conv.shape), tuple(ssm.state.shape),
+                                                mesh)
+        return type(ssm)(conv=ns(conv_spec), state=ns(state_spec))
+
+    def cross_sharding(x):
+        if x is None:
+            return None
+        _, B, Nv, K = x.shape[:4]        # (n_cross, B, Nv, K, hd)
+        return ns(P(None, _batch_ax(B, mesh), None,
+                    "model" if _div(K, "model", mesh) else None, None))
+
+    return type(cache)(kv=kv_shardings(cache.kv), global_kv=kv_shardings(cache.global_kv),
+                       ssm=ssm_shardings(cache.ssm), cross_k=cross_sharding(cache.cross_k),
+                       cross_v=cross_sharding(cache.cross_v))
+
+
+# ---------------------------------------------------------------------------
+# Specs on a DeviceMesh: placements, shards, batch reductions
+# ---------------------------------------------------------------------------
+
+def placements_for(spec: Sequence, mesh) -> tuple:
+    """DTensor placements of ``spec``: mesh dim ``a`` → ``Shard(i)`` when
+    ``a`` is, or is in, ``spec[i]``, else ``Replicate()``.  A tuple entry
+    must list its axes in mesh order (the order DTensor splits a dim in)."""
+    names = axis_names(mesh)
+    for entry in spec:
+        if isinstance(entry, tuple):
+            idx = [names.index(a) for a in entry]
+            if idx != sorted(idx):
+                raise ValueError(f"spec entry {entry} is not in the mesh's axis order {names}")
+        elif entry is not None and entry not in names:
+            raise ValueError(f"spec names axis {entry!r}; the mesh has {names}")
+    out = []
+    for a in names:
+        dims = [i for i, e in enumerate(spec)
+                if e == a or (isinstance(e, tuple) and a in e)]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} shards two dims over axis {a!r}")
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def local_shard(x: torch.Tensor, placements: Sequence, mesh) -> torch.Tensor:
+    """This rank's shard of the full tensor ``x`` under ``placements``, cut
+    with no communication (every dim must divide evenly, as the divisibility
+    guard ensures).  An unsharded ``x`` comes back as it is."""
+    coord = mesh.get_coordinate()
+    sizes = tuple(mesh.shape)
+    cut = False
+    for dim in range(x.dim()):
+        idx, n = 0, 1
+        for md, pl in enumerate(placements):
+            if isinstance(pl, Shard) and pl.dim == dim:
+                idx, n = idx * sizes[md] + coord[md], n * sizes[md]
+        if n > 1:
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+            step = x.shape[dim] // n
+            x, cut = x.narrow(dim, idx * step, step), True
+    return x.clone(memory_format=torch.contiguous_format) if cut else x
+
+
+def distribute_like(x: torch.Tensor, mesh, placements: Sequence) -> DTensor:
+    """The full tensor ``x`` as a DTensor with ``placements``, each rank
+    keeping its own shard (no communication)."""
+    return DTensor.from_local(local_shard(x, placements, mesh), mesh, tuple(placements),
+                              run_check=False)
+
+
+def distribute_tree(tree, spec_tree, mesh):
+    """Every leaf of ``tree`` (full tensors, the same on every rank) as a
+    DTensor placed by its spec in ``spec_tree`` (same structure)."""
+    specs: dict = {}
+    map_with_path(specs.__setitem__, spec_tree)
+    return map_with_path(
+        lambda path, x: distribute_like(x, mesh, placements_for(specs[path], mesh)), tree)
+
+
+def gather_tree(tree):
+    """Every DTensor leaf gathered whole (``full_tensor()``): the port's
+    gather-on-use of sharded state."""
+    return map_with_path(lambda _, x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def reduce_over(x: torch.Tensor, mesh, dims: Sequence[str]) -> torch.Tensor:
+    """``x`` summed over the ranks of the mesh axes ``dims``, one axis after
+    the other (an axis of one rank is skipped: its sum is ``x``)."""
+    for d in dims:
+        if mesh_shape(mesh)[d] > 1:
+            x = funcol.all_reduce(x, "sum", mesh.get_group(d))
+            if isinstance(x, funcol.AsyncCollectiveTensor):
+                x = x.wait()
+    return x
+
+
+def _reduction() -> tuple | None:
+    return getattr(_state, "reduction", None)
+
+
+@contextlib.contextmanager
+def use_batch_reduction(mesh, dims: Sequence[str]):
+    """Inside, :func:`batch_sum` and :func:`batch_mean` reduce over the
+    ranks of the mesh axes ``dims`` (the axes this rank's batch shard is cut
+    over); outside they are identities."""
+    prev = _reduction()
+    _state.reduction = (mesh, tuple(dims))
+    try:
+        yield
+    finally:
+        _state.reduction = prev
+
+
+class _BatchSum(torch.autograd.Function):
+    """Sum over the batch ranks; the backward passes the gradient through,
+    so each rank's gradient is its own shard's contribution and their sum
+    over the ranks is the gradient of the whole batch's loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return reduce_over(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the batch shards (:func:`use_batch_reduction`)."""
+    red = _reduction()
+    if red is None or all(mesh_shape(red[0])[d] == 1 for d in red[1]):
+        return x
+    return _BatchSum.apply(x, *red)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch shards of a per-shard mean (equal shards)."""
+    red = _reduction()
+    n = 1 if red is None else _axis_size(red[1], red[0])
+    return x if n == 1 else batch_sum(x) / n

@@ -10,8 +10,15 @@ every step), ``--remat`` activation checkpointing, a checkpoint every
 ``--ckpt-every`` steps into ``--ckpt-dir`` and restart-on-failure with
 replay (``distributed.fault_tolerance.TrainingRunner``; ``--inject-failure-at``
 fails one step once), a straggler watchdog, a log line every
-``--log-every`` steps and a ``done: ...`` line.  ``--data`` > 0 (a sharded
-run) waits for item 18d.
+``--log-every`` steps and a ``done: ...`` line.  ``--data D --model M``
+(ROADMAP item 18d) trains on a ``data × model`` mesh, one rank per process:
+inside a torchrun world (``RANK``/``WORLD_SIZE`` set) it joins that world;
+with ``D·M == 1`` it runs a one-rank group in this process; otherwise it
+spawns ``D·M`` local processes over a ``FileStore`` (gloo on the CPU, NCCL
+with one rank per card on CUDA: more ranks than cards is refused).  Rank 0
+prints ``mesh: data=D × model=M`` and the log, and :func:`main` returns its
+summary.  The state is sharded by the reference's rules and gathered on use
+(``train.train_step``).
 
 ``--snn <net>`` trains one of the paper's networks (2-layer SNN, 6-layer DCSNN, 5-layer
 CSNN) with unsupervised STDP on ``--device`` (default ``cuda``), through the
@@ -31,12 +38,16 @@ update of all replicas is one launch of the dense kernel.
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import multiprocessing
 import os
 import tempfile
 import time
+import types
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core.engine import (EngineConfig, init_engine_population,
@@ -45,7 +56,9 @@ from repro_torch.data import LMBatchSpec, lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import (FailureInjector, RunnerConfig,
                                                      TrainingRunner)
+from repro_torch.distributed.sharding import batch_axes, init_process_group
 from repro_torch.launch import cli
+from repro_torch.launch.mesh import describe, make_debug_mesh
 from repro_torch.models import snn
 from repro_torch.train import OptimizerConfig, TrainConfig, init_training, make_train_step
 from repro_torch.train.stdp_trainer import train_to_accuracy
@@ -149,7 +162,7 @@ def run_snn_training(args) -> dict:
     return summary
 
 
-def lm_training(args) -> tuple[dict, dict]:
+def lm_training(args, mesh=None, device=None) -> tuple[dict, dict]:
     """The LM mode: ``(summary, final state {"params", "opt"})``.
 
     The model is drawn from a generator on the run's device seeded by
@@ -157,16 +170,18 @@ def lm_training(args) -> tuple[dict, dict]:
     ``1000 + k`` (the reference's ``PRNGKey(1000 + step)``), so a replay
     after a restart trains on the same tokens.  ``tokens_per_s`` counts the
     ``--steps`` steps' tokens over the wall time of the whole loop,
-    restarts and replays included."""
-    dev = resolve_device(args.device)
+    restarts and replays included.  With a ``mesh`` every rank draws the
+    same model and batches and keeps its shards; rank 0 prints."""
+    dev = resolve_device(args.device if device is None else device)
+    verbose = mesh is None or dist.get_rank() == 0
     steps = args.steps or 100
     batch = args.batch or 8
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=steps,
                               warmup_steps=max(steps // 20, 5), po2_update=args.po2_update)
     params, opt_state = init_training(torch.Generator(dev).manual_seed(args.seed or 0), cfg,
-                                      opt_cfg, device=dev)
-    step_fn = make_train_step(cfg, opt_cfg, TrainConfig(remat=args.remat))
+                                      opt_cfg, mesh=mesh, device=dev)
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig(remat=args.remat), mesh)
     spec = LMBatchSpec(batch=batch, seq=args.seq, vocab=cfg.vocab_size)
 
     def batch_for(step: int) -> dict:
@@ -178,7 +193,7 @@ def lm_training(args) -> tuple[dict, dict]:
     def logged_step(state, batch):
         nonlocal n_run
         p, o, metrics = step_fn(state["params"], state["opt"], batch)
-        if n_run % args.log_every == 0:
+        if verbose and n_run % args.log_every == 0:
             dt = time.perf_counter() - t0
             print(f"step {n_run:5d}  loss {float(metrics['loss']):.4f}  "
                   f"lr {float(metrics['lr']):.2e}  gnorm {float(metrics['grad_norm']):.3f}  "
@@ -199,14 +214,92 @@ def lm_training(args) -> tuple[dict, dict]:
                "run_seconds": round(wall, 4), "tokens_per_s": steps * batch * args.seq / wall,
                "final_loss": losses[-1], "restarts": runner.restarts,
                "stragglers": len(runner.watchdog.stragglers)}
-    print(f"done: {steps} steps in {wall:.1f}s; restarts={runner.restarts}; "
-          f"stragglers={summary['stragglers']}", flush=True)
+    if verbose:
+        print(f"done: {steps} steps in {wall:.1f}s; restarts={runner.restarts}; "
+              f"stragglers={summary['stragglers']}", flush=True)
     return summary, state
 
 
 def run_lm_training(args) -> dict:
     """The LM mode: :func:`lm_training`'s summary (also printed)."""
     return lm_training(args)[0]
+
+
+def _mesh_rank(args, rank: int, world: int, *, local_rank: int = 0, store=None,
+               init_method: str | None = None) -> tuple[dict, dict]:
+    """One rank of the LM mode on a ``--data × --model`` mesh: joins the
+    group, trains, and leaves the group; ``(summary, final state gathered
+    whole)``."""
+    from repro_torch.distributed.sharding import gather_tree
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+    init_process_group(dev, rank=rank, world_size=world, init_method=init_method, store=store)
+    try:
+        mesh = make_debug_mesh(args.data, args.model, device=dev)
+        if rank == 0:
+            print(f"mesh: {describe(mesh)}", flush=True)
+        summary, state = lm_training(args, mesh=mesh, device=dev)
+        state = {"params": gather_tree(state["params"]),
+                 "opt": type(state["opt"])(state["opt"].step, gather_tree(state["opt"].mu),
+                                           gather_tree(state["opt"].nu))}
+        return dict(summary, mesh=describe(mesh)), state
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_worker(arg_dict: dict, rank: int, world: int, store_path: str, out_path: str) -> None:
+    """A spawned rank of :func:`mesh_lm_training`; rank 0 writes the summary."""
+    if arg_dict["device"] == "cpu":      # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    summary, _ = _mesh_rank(argparse.Namespace(**arg_dict), rank, world, local_rank=rank,
+                            store=dist.FileStore(store_path, world))
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(summary, f)
+
+
+def mesh_lm_training(args) -> tuple[dict, dict | None]:
+    """The LM mode on a ``--data × --model`` mesh: ``(rank 0's summary, the
+    final state gathered whole, or None when the ranks ran in spawned
+    processes)``.  Refuses a batch the batch axes do not divide and, on
+    CUDA, more ranks than cards."""
+    world = args.data * args.model
+    dev = resolve_device(args.device)
+    shape = {"data": args.data, "model": args.model}
+    n_batch = math.prod(shape[a] for a in batch_axes(
+        types.SimpleNamespace(shape=shape, axis_names=tuple(shape))))
+    if (args.batch or 8) % n_batch:
+        raise ValueError(f"--batch {args.batch or 8} does not split over the batch axes "
+                         f"({n_batch} ranks) of a data={args.data} × model={args.model} mesh")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # inside torchrun
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(f"a {args.data}x{args.model} mesh needs {world} ranks, the "
+                             f"torchrun world has {os.environ['WORLD_SIZE']}")
+        return _mesh_rank(args, int(os.environ["RANK"]), world, init_method="env://",
+                          local_rank=int(os.environ.get("LOCAL_RANK", 0)))
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"a {args.data}x{args.model} mesh needs {world} CUDA ranks, one per "
+                         f"card, and this host has {torch.cuda.device_count()} (NCCL refuses "
+                         f"two ranks on one card)")
+    with tempfile.TemporaryDirectory() as tmp:
+        store_path = os.path.join(tmp, "store")
+        if world == 1:
+            return _mesh_rank(args, 0, 1, store=dist.FileStore(store_path, 1))
+        out_path = os.path.join(tmp, "summary.json")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_worker,
+                             args=(vars(args), r, world, store_path, out_path))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise RuntimeError(f"mesh ranks exited with {codes}")
+        with open(out_path) as f:
+            return json.load(f), None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -237,7 +330,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--po2-update", action="store_true",
                     help="ITP-AdamW: po2-quantised optimizer updates")
     ap.add_argument("--data", type=int, default=0,
-                    help="data-parallel mesh axis (0 = no mesh; a mesh waits for item 18d)")
+                    help="data-parallel mesh axis (0 = no mesh)")
     ap.add_argument("--model", type=int, default=1, help="model-parallel mesh axis")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -254,8 +347,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.engine:
         return run_engine_training(args)
     if args.data > 0:
-        ap.error("a data-parallel mesh (--data > 0) is not ported yet (ROADMAP queue 1 "
-                 "item 18d); run with --data 0")
+        return mesh_lm_training(args)[0]
     return run_lm_training(args)
 
 

@@ -16,9 +16,13 @@ change from run to run.  Here the (B, E, C) assignment is inverted into each
 token's k slots and the slots are summed in a fixed order, by expert index,
 with no atomics: two CUDA runs are bit-equal.
 
-There is no mesh before item 18d, so expert parallelism is off
-(:func:`_ep_active`), and the reference's ``constrain(...)`` hints
-(``moe.py:94-99``) are left out.
+On a mesh (ROADMAP item 18d) :func:`_ep_active` reads it as the reference
+does and picks the ``constrain`` specs, which are identities until
+tensor-parallel compute (item 19).  The balance loss is a product of two
+batch means, so with the batch sharded over ranks both means, and the
+router z-loss, are reduced over the batch shards inside the forward
+(``distributed.sharding.batch_mean``): each rank's loss is then the whole
+batch's, as under GSPMD.
 """
 from __future__ import annotations
 
@@ -27,12 +31,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import batch_mean, constrain, current_mesh, mesh_shape
 from repro_torch.models.layers import Params, dense_init, draw_normal, init_device, pdtype
 
 
 def _ep_active(cfg) -> bool:
-    """Expert parallelism: no mesh in the port until item 18d."""
-    return False
+    mesh = current_mesh()
+    return mesh is not None and cfg.experts_alloc % mesh_shape(mesh)["model"] == 0
 
 
 def moe_capacity(cfg, tokens_per_group: int) -> int:
@@ -122,11 +127,15 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     live = gate_ec > 0.0                                         # capacity fill
 
     # gather selected tokens: (B,E,C,D)
+    ep = _ep_active(cfg)
+    e_spec = ("batch", "tp", None, None) if ep else ("batch", None, None, None)
+    f_spec = ("batch", "tp", None, None) if ep else ("batch", None, None, "tp")
     b_idx = torch.arange(B, device=x.device)[:, None, None]
-    xg = x[b_idx, tok_ec]
-    h = torch.einsum("becd,edf->becf", xg, p["gate"].to(dt))
-    u = torch.einsum("becd,edf->becf", xg, p["up"].to(dt))
+    xg = constrain(x[b_idx, tok_ec], e_spec)
+    h = constrain(torch.einsum("becd,edf->becf", xg, p["gate"].to(dt)), f_spec)
+    u = constrain(torch.einsum("becd,edf->becf", xg, p["up"].to(dt)), f_spec)
     y = torch.einsum("becf,efd->becd", F.silu(h) * u, p["down"].to(dt))
+    y = constrain(y, e_spec)
     y = y * (gate_ec * live)[..., None].to(dt)
     out = _combine(y, tok_ec, live, top_i)
 
@@ -142,8 +151,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     chosen.scatter_(-1, top_i, 1.0)
     density = chosen.mean(dim=(0, 1))
     router_mean = probs.mean(dim=(0, 1))
-    aux = E * (density * router_mean).sum()
     zloss = torch.logsumexp(logits, dim=-1).square().mean()
+    # the three means of the whole batch (one reduction when it is sharded)
+    stats = batch_mean(torch.cat([density, router_mean, zloss[None]]))
+    density, router_mean, zloss = stats[:E], stats[E:2 * E], stats[2 * E]
+    aux = E * (density * router_mean).sum()
     losses = {"moe_aux": cfg.router_aux_weight * aux,
               "moe_z": cfg.router_z_weight * zloss}
     return out, losses

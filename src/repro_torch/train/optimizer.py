@@ -9,6 +9,11 @@ runs their plain versions instead, on the same device.
 Trees are nested dicts (lists, tuples) of tensors, walked in the reference's
 key order (:mod:`repro_torch.tree`).  Every step is float32 arithmetic, as
 in the reference; ``step`` is an int32 scalar tensor.
+
+Sharded state (ROADMAP item 18d) is a tree of DTensors: each update runs on
+the rank's local shards, and :func:`global_norm` sums a leaf's squares over
+the mesh axes it is sharded on only, so an element replicated over an axis
+counts once, as in the reference's global arithmetic.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import reduce_over
 from repro_torch.kernels.po2_quant.ops import po2_quantize
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -60,9 +67,28 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(x, local: torch.Tensor):
+    """``local`` placed as ``x`` is (a DTensor shard, or ``local`` itself)."""
+    if isinstance(x, DTensor):
+        return DTensor.from_local(local, x.device_mesh, x.placements, run_check=False)
+    return local
+
+
+def _square_sum(x) -> torch.Tensor:
+    s = torch.sum(torch.square(_local(x).to(torch.float32)))
+    if isinstance(x, DTensor):       # each distinct element once
+        names = x.device_mesh.mesh_dim_names
+        s = reduce_over(s, x.device_mesh,
+                        [names[i] for i, pl in enumerate(x.placements) if pl.is_shard()])
+    return s
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -71,13 +97,13 @@ def clip_by_global_norm(tree, max_norm: float):
     # take PyTorch's reciprocal-and-multiply)
     numer = torch.full_like(norm, max_norm)
     scale = torch.clamp(numer / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g * scale, tree), norm
+    return tree_map(lambda g: _like(g, _local(g) * scale), tree), norm
 
 
 def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState, *,
                  use_kernel: bool = True):
     """Returns ``(new_params, new_state, metrics)``."""
-    grads = tree_map(lambda g: g.to(torch.float32), grads)
+    grads = tree_map(lambda g: _like(g, _local(g).to(torch.float32)), grads)
     if cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
@@ -88,7 +114,8 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState, *,
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
 
-    def upd(p, g, m, v):
+    def upd(p_in, *gmv):
+        p, g, m, v = _local(p_in), *(_local(x) for x in gmv)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
         mhat = m / bc1
@@ -98,7 +125,7 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState, *,
         if cfg.po2_update:         # ITP quantiser: sign·2^round(log2|u|)
             u = po2_quantize(u, use_kernel=use_kernel)
         p_new = p.to(torch.float32) - lr * u
-        return p_new.to(p.dtype), m, v
+        return _like(p_in, p_new.to(p.dtype)), _like(p_in, m), _like(p_in, v)
 
     out = [upd(*leaves) for leaves in zip(tree_leaves(params), tree_leaves(grads),
                                           tree_leaves(state.mu), tree_leaves(state.nu))]

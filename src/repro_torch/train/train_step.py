@@ -14,9 +14,29 @@ gradient is taken under PyTorch's deterministic algorithms
 embedding and MoE gathers would otherwise add with atomics, and a restart
 that replays steps must end where an uninterrupted run does, bit for bit.
 
-The reference's mesh branch (the pod-local gradients inside a
-``shard_map`` and the po2-compressed pod mean) and ``batch_shardings``
-belong to item 18d: a mesh is refused.
+With a mesh (ROADMAP item 18d: a ``torch.distributed`` DeviceMesh with the
+reference's axis names ``('data','model')`` or ``('pod','data','model')``)
+the state is a tree of DTensors placed by the reference's rules
+(``distributed.sharding.param_spec_for``), and the step computes what
+GSPMD computes for the reference's step, up to summation order:
+
+  1. each leaf is gathered on use (``full_tensor()``);
+  2. :func:`loss_and_grads` runs on the rank's shard of the batch (over
+     ``batch_axes(mesh)``), with the loss's batch reductions (the token
+     count, the MoE balance means) taken over the batch ranks;
+  3. the gradients are summed over the batch ranks and each is cut to its
+     leaf's shard;
+  4. with a ``'pod'`` axis the gradients and metrics so far are pod-local
+     (the reference's region manual over ``'pod'``), and the shards are
+     averaged over the pods by ``compression.pod_mean_tree``:
+     po2-compressed (kernels 9-10 on every leaf) or, with
+     ``pod_compression=False``, a plain float32 mean; the metrics are
+     averaged over the pods;
+  5. AdamW runs on the local shards.
+
+Tensor-parallel compute is not ported (ROADMAP item 19): under the
+``fsdp`` and ``replicated`` profiles the ``'model'`` ranks compute the same
+batch shard.
 """
 from __future__ import annotations
 
@@ -24,11 +44,18 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import (NamedSharding, P, axis_names, batch_axes,
+                                              batch_sum, distribute_tree, gather_tree,
+                                              local_shard, mesh_shape, param_spec_tree, reduce_over,
+                                              use_batch_reduction, use_manual_axes, use_mesh,
+                                              use_sharding_profile)
 from repro_torch.device import deterministic
 from repro_torch.models import transformer
 from repro_torch.train.optimizer import OptimizerConfig, OptState, adamw_update, init_opt_state
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = dict[str, Any]
 
@@ -40,12 +67,6 @@ class TrainConfig:
     pod_compression: bool = True     # po2 wire format across the pod axis
     unroll: bool = False             # unroll layer scans (measurement only)
     sharding_profile: str = "fsdp"   # fsdp | replicated (weights over data)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("a mesh (sharded LM training, the multi-pod step) is not ported yet "
-                         "(ROADMAP queue 1 item 18d); pass mesh=None")
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +96,11 @@ def lm_loss(params: Params, cfg, batch: dict, *, train_cfg: TrainConfig,
     lse = torch.logsumexp(logits.float(), dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - gold.float()
-    n_tok = torch.clamp(torch.sum(mask), min=1.0)
-    ce = torch.sum(nll * mask) / n_tok
-    zl = train_cfg.z_loss * torch.sum((lse ** 2) * mask) / n_tok
+    # sums over the whole batch when it is sharded (shards hold different
+    # token counts where labels are -1)
+    n_tok = torch.clamp(batch_sum(torch.sum(mask)), min=1.0)
+    ce = batch_sum(torch.sum(nll * mask)) / n_tok
+    zl = train_cfg.z_loss * batch_sum(torch.sum((lse ** 2) * mask)) / n_tok
     loss = ce + zl + aux.get("moe_aux", 0.0) + aux.get("moe_z", 0.0)
     metrics = {"loss": loss, "ce": ce, "z_loss": zl,
                "moe_aux": aux.get("moe_aux", torch.zeros((), device=loss.device)),
@@ -106,13 +129,74 @@ def loss_and_grads(params: Params, cfg, batch: dict, *, train_cfg: TrainConfig
             tree_unflatten(params, grads))
 
 
+def batch_shardings(mesh, batch_tree: dict) -> dict:
+    """Batch arrays shard their leading dim over ``batch_axes(mesh)``."""
+    ax = batch_axes(mesh)
+    return tree_map(lambda x: NamedSharding(mesh, P(ax, *([None] * (x.dim() - 1)))),
+                    batch_tree)
+
+
+def _local_batch(batch: dict, mesh) -> dict:
+    """This rank's shard of the global batch (a DTensor batch is already
+    placed: its local shard)."""
+    def one(x, sh):
+        if isinstance(x, DTensor):
+            return x.to_local()
+        return local_shard(x, sh.placements, mesh)
+    return {k: one(batch[k], sh) for k, sh in batch_shardings(mesh, batch).items()}
+
+
+def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, use_kernel):
+    names = axis_names(mesh)
+    if names not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"a train mesh has axes ('data','model') or ('pod','data','model'), "
+                         f"not {names}")
+    multi_pod = "pod" in names
+    manual = ("pod",) if multi_pod else ()
+
+    def step(params: Params, opt_state: OptState, batch: dict):
+        with use_mesh(mesh), use_sharding_profile(train_cfg.sharding_profile):
+            local = _local_batch(batch, mesh)
+            with use_manual_axes(manual):
+                # the ranks this rank's batch shard shares the loss with: the
+                # batch axes, less 'pod' (the pod block's loss is pod-local)
+                dims = tuple(a for a in batch_axes(mesh) if a not in manual)
+                full = gather_tree(params)
+                with use_batch_reduction(mesh, dims):
+                    _, metrics, grads = loss_and_grads(full, cfg, local, train_cfg=train_cfg)
+                del full
+                grads = [local_shard(reduce_over(g, mesh, dims), p.placements, mesh)
+                         for g, p in zip(tree_leaves(grads), tree_leaves(params))]
+            if multi_pod:
+                grads = compression.pod_mean_tree(grads, compress=train_cfg.pod_compression,
+                                                  group=mesh.get_group("pod"))
+                n_pod = mesh_shape(mesh)["pod"]
+                metrics = {k: v if n_pod == 1 else reduce_over(v, mesh, ("pod",)) / n_pod
+                           for k, v in metrics.items()}
+            grads = tree_unflatten(params, [
+                DTensor.from_local(g, p.device_mesh, p.placements, run_check=False)
+                for g, p in zip(grads, tree_leaves(params))])
+            new_params, new_opt, opt_metrics = adamw_update(opt_cfg, params, grads, opt_state,
+                                                            use_kernel=use_kernel)
+        return new_params, new_opt, dict(metrics, **opt_metrics)
+
+    return step
+
+
 def make_train_step(cfg, opt_cfg: OptimizerConfig,
                     train_cfg: TrainConfig = TrainConfig(), mesh=None, *,
                     use_kernel: bool = True) -> Callable[[Params, OptState, dict], tuple]:
     """Build the train step ``(params, opt_state, batch) → (params',
     opt_state', metrics)``.  ``use_kernel=False`` runs ITP-AdamW's quantiser
-    on its plain version instead of kernels 9-10."""
-    _no_mesh(mesh)
+    on its plain version instead of kernels 9-10.
+
+    With a ``mesh`` the state is the DTensor tree :func:`init_training`
+    places, the batch is the global batch (every rank passes the same one,
+    or DTensors placed by :func:`batch_shardings`), and every rank of the
+    mesh calls the step; the metrics are plain tensors, equal on every
+    rank."""
+    if mesh is not None:
+        return _sharded_step(cfg, opt_cfg, train_cfg, mesh, use_kernel)
 
     def step(params: Params, opt_state: OptState, batch: dict):
         _, metrics, grads = loss_and_grads(params, cfg, batch, train_cfg=train_cfg)
@@ -126,7 +210,10 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig,
 def init_training(gen: torch.Generator | None, cfg, opt_cfg: OptimizerConfig, *, mesh=None,
                   device: str | torch.device = "cuda"):
     """``(params, opt_state)``: the model drawn from ``gen`` on ``device``
-    (CUDA unless the caller asks for the CPU) and zero moments."""
-    _no_mesh(mesh)
+    (CUDA unless the caller asks for the CPU) and zero moments.  With a
+    ``mesh`` the same draw is placed on it by the reference's rules under
+    the ambient sharding profile, every rank keeping its shards."""
     params = transformer.init_model(gen, cfg, device=device)
+    if mesh is not None:
+        params = distribute_tree(params, param_spec_tree(cfg, params, mesh), mesh)
     return params, init_opt_state(params)

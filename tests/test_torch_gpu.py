@@ -1544,3 +1544,74 @@ def test_lm_launcher_restart_on_card_is_bitwise(cuda, tmp_path):
                                                            "--inject-failure-at", "5"]))
     assert s1["device"].startswith("cuda") and (s1["restarts"], s2["restarts"]) == (0, 1)
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+# ---------------------------------------------------------------------------
+# sharded LM training (ROADMAP item 18d) on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _lm_smoke_run(cuda, mesh, train_cfg, steps=2):
+    """Two ITP-AdamW steps of the float32 qwen3-0.6b smoke config from seed
+    5, on ``mesh`` (None: unsharded); the state gathered whole and the
+    metrics, and the po2 launches of the run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.train import OptimizerConfig, init_training, make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    ocfg = OptimizerConfig(lr=3e-4, total_steps=100, warmup_steps=5, po2_update=True)
+    params, opt = init_training(torch.Generator(cuda).manual_seed(5), cfg, ocfg, mesh=mesh,
+                                device=cuda)
+    step = make_train_step(cfg, ocfg, train_cfg, mesh)
+    spec = LMBatchSpec(batch=4, seq=32, vocab=cfg.vocab_size)
+    PK.po2_encode.launches = PK.po2_decode.launches = 0
+    metrics = []
+    for k in range(steps):
+        batch = next(lm_batches(torch.Generator(cuda).manual_seed(50 + k), spec, n_steps=1))
+        params, opt, m = step(params, opt, batch)
+        metrics.append({name: float(v) for name, v in m.items()})
+    torch.cuda.synchronize()
+    launches = (PK.po2_encode.launches, PK.po2_decode.launches)
+    state = tree_leaves((gather_tree(params), gather_tree(opt.mu), gather_tree(opt.nu)))
+    return state, metrics, launches, len(tree_leaves(params))
+
+
+@pytest.mark.parametrize("pod", [False, True], ids=["data_model", "pod_data_model"])
+def test_lm_sharded_step_on_nccl_equals_the_unsharded_step(cuda, tmp_path, monkeypatch, pod):
+    """A 1 × 1 (or 1 × 1 × 1) NCCL mesh in this process: the sharded step is
+    the unsharded step bit for bit, kernels 9-10 launching once per leaf per
+    step in ITP-AdamW (and once more each in the pod mean, where the
+    unsharded step is fed the plain po2 round trip of its gradients)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import init_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import TrainConfig
+    from repro_torch.train import train_step as TTS
+
+    init_process_group(cuda, rank=0, world_size=1,
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_debug_mesh(1, 1, pod=1 if pod else None, device=cuda)
+        got, got_m, launches, n = _lm_smoke_run(cuda, mesh, TrainConfig(remat="full"))
+    finally:
+        dist.destroy_process_group()
+    assert launches == ((4 if pod else 2) * n,) * 2
+    if pod:
+        real = TTS.loss_and_grads
+
+        def roundtrip(*a, **kw):
+            loss, metrics, grads = real(*a, **kw)
+            return loss, metrics, _tree_roundtrip(grads)
+        monkeypatch.setattr(TTS, "loss_and_grads", roundtrip)
+    want, want_m, _, _ = _lm_smoke_run(cuda, None, TrainConfig(remat="full"))
+    monkeypatch.undo()
+    assert got_m == want_m
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _tree_roundtrip(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_roundtrip(v) for k, v in tree.items()}
+    return PR.po2_roundtrip_ref(tree)

@@ -68,10 +68,19 @@ def test_lm_mode_restart_is_bitwise(tmp_path, arch, po2):
     assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_lm_mode_refuses_a_data_mesh(capsys):
-    with pytest.raises(SystemExit):
-        launch_train.main(SMOKE + ["--data", "2"])
-    assert "item 18d" in capsys.readouterr().err
+def test_lm_mode_refuses_a_data_mesh(tmp_path, capsys):
+    """A data mesh (ROADMAP item 18d): on one rank it ends bit-equal to no
+    mesh; a batch its batch axes do not divide is refused before any rank
+    starts."""
+    plain_summary, plain = launch_train.lm_training(_lm_args(tmp_path / "a", "--steps", "3"))
+    summary, state = launch_train.mesh_lm_training(_lm_args(tmp_path / "b", "--steps", "3",
+                                                            "--data", "1", "--model", "1"))
+    assert "mesh: data=1 × model=1" in capsys.readouterr().out
+    assert summary["final_loss"] == plain_summary["final_loss"]
+    a, b = tree_leaves(plain), tree_leaves(state)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="does not split"):
+        launch_train.main(SMOKE + ["--data", "3", "--ckpt-dir", str(tmp_path / "c")])
 
 
 # ---------------------------------------------------------------------------

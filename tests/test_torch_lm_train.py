@@ -173,13 +173,35 @@ def test_three_steps_track_the_reference_loss(arch):
     assert int(ts.step) == 3 and all(np.isfinite(losses))
 
 
-def test_mesh_is_refused_citing_item_18d():
-    cfg, _, tp = _model("qwen3-0.6b")
-    with pytest.raises(ValueError, match="item 18d"):
-        TTS.make_train_step(cfg, TO.OptimizerConfig(), mesh=object())
-    with pytest.raises(ValueError, match="item 18d"):
-        TTS.init_training(torch.Generator(), cfg, TO.OptimizerConfig(), mesh=object(),
-                          device="cpu")
+def test_mesh_is_refused_citing_item_18d(tmp_path):
+    """A mesh (ROADMAP item 18d, refused before it was ported): on a 1 × 1
+    gloo mesh in this process the sharded step is the unsharded step, bit
+    for bit; a mesh without the reference's axis names is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import init_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg, _, _ = _model("qwen3-0.6b")
+    ocfg = TO.OptimizerConfig(**OPT, po2_update=True)
+    _, tb = _batches(cfg, *_inputs(cfg, B, S, 4))
+    params, state = TTS.init_training(torch.Generator().manual_seed(0), cfg, ocfg, device="cpu")
+    want = TTS.make_train_step(cfg, ocfg)(params, state, tb)
+    init_process_group("cpu", rank=0, world_size=1,
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_debug_mesh(1, 1, device="cpu")
+        params, state = TTS.init_training(torch.Generator().manual_seed(0), cfg, ocfg,
+                                          mesh=mesh, device="cpu")
+        got = TTS.make_train_step(cfg, ocfg, mesh=mesh)(params, state, tb)
+        for a, b in zip(tree_leaves((got[0], got[1].mu, got[1].nu)),
+                        tree_leaves((want[0], want[1].mu, want[1].nu))):
+            assert torch.equal(a.full_tensor(), b)
+        assert all(torch.equal(got[2][k], want[2][k]) for k in want[2])
+        with pytest.raises(ValueError, match="a train mesh has axes"):
+            TTS.make_train_step(cfg, ocfg, mesh=dist.device_mesh.init_device_mesh(
+                "cpu", (1,), mesh_dim_names=("x",)))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_init_training_draws_the_model_and_zero_moments():

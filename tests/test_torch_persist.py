@@ -248,14 +248,16 @@ def test_engine_mode_matches_reference_backend(rule, backend):
     assert s["mean_post_rate"] == s_ref["mean_post_rate"]
 
 
-def test_launcher_main_engine_mode_and_lm_refusal(capsys):
-    """The engine mode through ``main``; the LM mode's data-parallel mesh,
-    the next unported name (ROADMAP item 18d), is refused."""
+def test_launcher_main_engine_mode_and_lm_refusal(capsys, tmp_path):
+    """The engine mode through ``main``; the LM mode's data-parallel mesh
+    (ROADMAP item 18d, refused before it was ported) runs a one-rank group
+    in this process."""
     out = launch_train.main(["--engine", "--device", "cpu", "--backend", "fused",
                              "--replicas", "2", "--engine-pre", "16", "--engine-post", "8",
                              "--steps", "4"])
     assert out["steps"] == 4 and out["replicas"] == 2 and out["n_pre"] == 16
     assert "engine training [itp / fused / cpu]" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        launch_train.main(["--device", "cpu", "--smoke", "--data", "2"])
-    assert "item 18d" in capsys.readouterr().err
+    out = launch_train.main(["--device", "cpu", "--smoke", "--data", "1", "--steps", "2",
+                             "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path)])
+    assert out["mesh"] == "data=1 × model=1" and out["steps"] == 2
+    assert "mesh: data=1 × model=1" in capsys.readouterr().out

@@ -258,9 +258,11 @@ def test_launcher_trains_a_net_on_cpu(capsys):
     assert TL.synaptic_updates_per_step(cfg, 2) == 2 * (253 * 14 * 8 + 61 * 40 * 16 + 480 * 64)
 
 
-def test_launcher_needs_the_snn_mode():
+def test_launcher_needs_the_snn_mode(tmp_path):
     """Without ``--snn`` or ``--engine`` the launcher runs the LM mode (ROADMAP
-    item 18c); its next unported name, a data-parallel mesh (item 18d), is
-    refused."""
-    with pytest.raises(SystemExit):
-        TL.main(["--device", "cpu", "--smoke", "--data", "2"])
+    item 18c), on a data-parallel mesh too (item 18d): no net is trained."""
+    summary = TL.main(["--device", "cpu", "--smoke", "--data", "1", "--model", "1",
+                       "--steps", "2", "--batch", "2", "--seq", "8", "--ckpt-dir",
+                       str(tmp_path)])
+    assert "net" not in summary and summary["arch"] == "qwen3-0.6b"
+    assert summary["mesh"] == "data=1 × model=1" and np.isfinite(summary["final_loss"])

@@ -2869,19 +2869,23 @@ def _timed_steps(step, params, opt, batch_for, n: int, counters, *, profile_last
 
 
 def _lm_sharded_steps(device, mesh, smi: str) -> dict:
-    """(a) the fsdp step on the 1 x 1 mesh against the unsharded step, and
-    (b) the pod branch on the 1 x 1 x 1 mesh against the unsharded step fed
-    the plain po2 round trip of its gradients, each from seed 90."""
+    """(a) the fsdp step on the 1 x 1 mesh, tensor-parallel over 'model'
+    (every one-rank collective skipped), against the unsharded step and
+    beside the gather-on-use step (profile ``dp``: every weight gathered
+    whole), and (b) the pod branch on the 1 x 1 x 1 mesh against the
+    unsharded step fed the plain po2 round trip of its gradients, each from
+    seed 90."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import LMBatchSpec, lm_batches
-    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.distributed.sharding import gather_tree, tp_mesh, use_sharding_profile
     from repro_torch.kernels.po2_quant import kernel as PK
     from repro_torch.kernels.po2_quant.ref import po2_roundtrip_ref
     from repro_torch.launch.mesh import describe, make_debug_mesh
     from repro_torch.train import (OptimizerConfig, TrainConfig, adamw_update, init_training,
                                    make_train_step)
+    from repro_torch.train import train_step as TS
     from repro_torch.train.train_step import loss_and_grads
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -2905,17 +2909,41 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
     counters = (PK.po2_encode, PK.po2_decode)
     out = {}
 
-    # (a) the single-pod fsdp step, then the unsharded one from the same draw
+    # the steps that enter the tensor-parallel context: the step's loss and
+    # gradients run with the mesh as its tp_mesh()
+    entered = []
+    enter = TS.use_tensor_parallel
+
+    def counted_enter(m):
+        entered.append(m)
+        return enter(m)
+
+    # (a) the single-pod fsdp step, tensor-parallel; then the gather-on-use
+    # step and the unsharded one from the same draw
     params, opt = draw(mesh)
     n_leaves = len(tree_leaves(params))
-    params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh), params, opt,
-                                   batch_for, LM_SHARDED_STEPS, counters, profile_last=True)
+    TS.use_tensor_parallel = counted_enter
+    try:
+        params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh), params, opt,
+                                       batch_for, LM_SHARDED_STEPS, counters, profile_last=True)
+    finally:
+        TS.use_tensor_parallel = enter
+    sh["tp_steps"] = sum(m is mesh for m in entered)
     prof, prof_s = sh.pop("prof")
     sh["busy"] = _report_profile(prof, prof_s, f"one {LM_DENSE} ITP-AdamW train step on the "
-                                 f"{describe(mesh)} mesh ({LM_TRAIN[0]} x {LM_TRAIN[1]}, "
-                                 f"remat full)")
+                                 f"{describe(mesh)} mesh, tensor-parallel ({LM_TRAIN[0]} x "
+                                 f"{LM_TRAIN[1]}, remat full)")
     del prof
     end_sharded = _to_device(gathered(params, opt), torch.device("cpu"))
+    del params, opt
+    torch.cuda.empty_cache()
+    with use_sharding_profile("dp"):
+        params, opt = draw(mesh)
+    params, opt, gou = _timed_steps(
+        make_train_step(cfg, ocfg, TrainConfig(remat="full", sharding_profile="dp"), mesh),
+        params, opt, batch_for, LM_SHARDED_STEPS + 1, counters)
+    gou.pop("prof")
+    end_gou = _to_device(gathered(params, opt), torch.device("cpu"))
     del params, opt
     torch.cuda.empty_cache()
     params, opt = draw()
@@ -2923,23 +2951,32 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
                                    LM_SHARDED_STEPS + 1, counters)
     un.pop("prof")
     # the unsharded run took one step more (the sharded run's profiled step)
-    same = (_bitwise(end_sharded, _to_device({"params": params, "mu": opt.mu, "nu": opt.nu},
-                                             torch.device("cpu")))
-            and sh["metrics"] == un["metrics"][:LM_SHARDED_STEPS])
+    plain = _to_device({"params": params, "mu": opt.mu, "nu": opt.nu}, torch.device("cpu"))
+    same = (_bitwise(end_sharded, plain) and sh["metrics"] == un["metrics"][:LM_SHARDED_STEPS])
+    gou_same = gou["metrics"] == un["metrics"] and _bitwise(end_gou, plain)
     want = {fn.__name__: n_leaves * LM_SHARDED_STEPS for fn in counters}
-    out["fsdp"] = dict(sh, same=same, unsharded=un, want=want)
+    # every timed step and the profiled one, and no step outside the context
+    tp_want = LM_SHARDED_STEPS + 1
+    out["fsdp"] = dict(sh, same=same, unsharded=un, gather_on_use=dict(gou, same=gou_same),
+                       want=want)
     _phase("lm_sharded", f"{LM_DENSE} on the {describe(mesh)} NCCL mesh (fsdp, DTensor state, "
-           f"gathered on use) at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}, ITP-AdamW, remat full: "
-           f"{LM_SHARDED_STEPS} steps + 1 profiled == the unsharded step (params, moments, "
-           f"metrics) bitwise {same}; step ms sharded "
-           f"{[round(w * 1e3, 2) for w in sh['walls']]} / unsharded "
-           f"{[round(w * 1e3, 2) for w in un['walls']]}; peak {sh['peak_gb']:.3f} GB / "
-           f"{un['peak_gb']:.3f} GB; busy share {sh['busy']}; po2 launches {sh['launches']} "
-           f"(want {want}) [{smi}]")
-    if not same or sh["launches"] != want:
+           f"tensor-parallel over 'model': {sh['tp_steps']} steps in the context, every "
+           f"one-rank collective skipped) at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}, ITP-AdamW, "
+           f"remat full: {LM_SHARDED_STEPS} steps + 1 profiled == the unsharded step (params, "
+           f"moments, metrics) bitwise {same}; step ms tensor-parallel "
+           f"{[round(w * 1e3, 2) for w in sh['walls']]} / gather-on-use (dp) "
+           f"{[round(w * 1e3, 2) for w in gou['walls']]} / unsharded "
+           f"{[round(w * 1e3, 2) for w in un['walls']]}; peak {sh['peak_gb']:.3f} / "
+           f"{gou['peak_gb']:.3f} / {un['peak_gb']:.3f} GB; gather-on-use == unsharded bitwise "
+           f"{gou_same}; busy share {sh['busy']}; po2 launches {sh['launches']} (want {want}) "
+           f"[{smi}]")
+    if (not same or sh["launches"] != want or sh["tp_steps"] != tp_want or not gou_same
+            or tp_mesh() is not None):
         raise SystemExit(f"lm_sharded: the 1 x 1 fsdp step: bitwise {same}, launches "
-                         f"{sh['launches']} (want {want})")
-    del params, opt, end_sharded
+                         f"{sh['launches']} (want {want}), tensor-parallel steps "
+                         f"{sh['tp_steps']} (want {tp_want}), gather-on-use == unsharded "
+                         f"{gou_same}")
+    del params, opt, end_sharded, end_gou, plain
     torch.cuda.empty_cache()
 
     # (b) the pod branch: pod-local gradients, the po2 mean over one pod
@@ -3013,8 +3050,9 @@ def _lm_mesh_launcher(device, smi: str) -> dict:
 
 
 def phase_lm_sharded(device, smi: str) -> dict:
-    """Sharded LM training (ROADMAP item 18d) on the card: (a) the fsdp step
-    on a 1 x 1 NCCL mesh and (b) the pod branch on a 1 x 1 x 1 mesh, each
+    """Sharded LM training (ROADMAP items 18d, 19a) on the card: (a) the
+    fsdp step on a 1 x 1 NCCL mesh, tensor-parallel over 'model', beside
+    the gather-on-use step, and (b) the pod branch on a 1 x 1 x 1 mesh, each
     against the unsharded step; (c) their times beside the dry run's flop
     count of the step; (d) the launcher's mesh mode.  The group is
     initialised here on a free localhost port and destroyed before (d),
@@ -3225,9 +3263,11 @@ def main() -> int:
            f"GB, busy share {f['busy']} [{smi}]")
     a = lm_sharded["fsdp"]
     _phase("lm_sharded", f"{LM_DENSE} on a 1 x 1 mesh at B={LM_TRAIN[0]} x S={LM_TRAIN[1]}: "
-           f"{statistics.median(a['walls']) * 1e3:.2f} ms a step sharded, "
+           f"{statistics.median(a['walls']) * 1e3:.2f} ms a step tensor-parallel, "
+           f"{statistics.median(a['gather_on_use']['walls']) * 1e3:.2f} ms gathered on use, "
            f"{statistics.median(a['unsharded']['walls']) * 1e3:.2f} ms unsharded, peak "
-           f"{a['peak_gb']:.3f} / {a['unsharded']['peak_gb']:.3f} GB, busy share {a['busy']}, "
+           f"{a['peak_gb']:.3f} / {a['gather_on_use']['peak_gb']:.3f} / "
+           f"{a['unsharded']['peak_gb']:.3f} GB, busy share {a['busy']}, "
            f"{lm_sharded['dryrun']['tflops_sharded']:.2f} TFLOP/s by the dry run's count [{smi}]")
 
     line = {"kernels": [

@@ -29,10 +29,15 @@ spec becomes DTensor placements through :func:`placements_for`, and
 :func:`distribute_tree` places a tree of full tensors with no
 communication, each rank cutting its own shard.
 
-GSPMD partitions the reference's compute from these specs; the port stores
-state by them and gathers each leaf on use (``train.train_step``), so
-:func:`constrain` is an identity until tensor-parallel compute (ROADMAP item
-19).  The batch reductions GSPMD inserts into a sharded loss (the token
+GSPMD partitions the reference's compute from these specs.  The port
+stores state by them; under the ``fsdp`` and ``replicated`` profiles the
+train step gathers each leaf over the fsdp axis only and computes each
+``'model'`` rank's share inside :func:`use_tensor_parallel` (ROADMAP item
+19a): the conjugate pair :func:`copy_to_model` / :func:`reduce_from_model`,
+:func:`gather_from_model`, the column- and row-parallel products, and
+:func:`constrain`, which acts there and is the identity elsewhere.  The
+prefill and decode plans still gather every leaf whole (item 19b).  The
+batch reductions GSPMD inserts into a sharded loss (the token
 count, the MoE balance means) are :func:`batch_sum` and :func:`batch_mean`
 over the axes :func:`use_batch_reduction` names.  The reference's
 ``shard_map_compat`` has no counterpart: a region manual over ``'pod'`` is
@@ -208,10 +213,10 @@ def sharding_profile() -> str:
     * 'dp_zero3'   — pure-DP compute with weights/opt sharded over the
                      (compute-idle) 'model' axis, gathered on use.
 
-    Until tensor-parallel compute (ROADMAP item 19) the port gathers every
-    weight on use, so under 'fsdp' and 'replicated' the 'model' ranks
-    compute the same batch shard; under 'dp' and 'dp_zero3' the model axis
-    carries batch and no work is duplicated.
+    Under 'fsdp' and 'replicated' the train step computes tensor-parallel
+    over 'model' (ROADMAP item 19a, :func:`use_tensor_parallel`); under
+    'dp' and 'dp_zero3' the model axis carries batch and every weight is
+    gathered whole on use.
     """
     return getattr(_state, "profile", "fsdp")
 
@@ -398,10 +403,33 @@ def param_shardings(cfg, params, mesh):
 
 
 def constrain(x: torch.Tensor, spec: Sequence) -> torch.Tensor:
-    """An activation sharding hint: the identity.  The reference's GSPMD
-    splits the compute here; the port gathers weights on use and computes
-    each rank's batch shard whole until ROADMAP item 19."""
-    return x
+    """An activation sharding constraint (the reference's
+    ``with_sharding_constraint`` at its ``constrain`` sites).
+
+    Outside :func:`use_tensor_parallel` it is the identity.  Inside, ``spec``
+    is resolved by :func:`logical_to_spec` on ``x``'s global shape (its
+    local shape with the dim it holds a ``'model'`` shard of, if any,
+    :func:`model_dim`, times the model axis) and compared with that dim:
+    where they agree ``x`` comes back as it is; where the spec drops
+    ``'model'`` from ``x``'s sharded dim, ``x`` is all-gathered over
+    ``'model'`` (:func:`gather_from_model`); any other transition raises.
+    """
+    mesh = tp_mesh()
+    if mesh is None:
+        return x
+    have = model_dim(x)
+    shape = list(x.shape)
+    if have is not None:
+        shape[have] *= tp_size()
+    want = [i for i, e in enumerate(logical_to_spec(spec, tuple(shape), mesh))
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+    want = want[0] if want else None
+    if want == have:
+        return x
+    if want is None:
+        return gather_from_model(x, have)
+    raise ValueError(f"constrain: a {tuple(x.shape)} activation holding 'model' on dim "
+                     f"{have} cannot move to spec {tuple(spec)} ('model' on dim {want})")
 
 
 def batch_spec(mesh, ndim: int, *, seq_axis=None) -> PartitionSpec:
@@ -619,3 +647,243 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     red = _reduction()
     n = 1 if red is None else _axis_size(red[1], red[0])
     return x if n == 1 else batch_sum(x) / n
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute over 'model' (ROADMAP item 19a)
+# ---------------------------------------------------------------------------
+#
+# Inside :func:`use_tensor_parallel` the model functions compute each
+# 'model' rank's share as the reference's GSPMD partitions it: a projection
+# whose weight the parameter specs shard over 'model' multiplies the rank's
+# shard (column-parallel: its output columns; row-parallel: its input rows,
+# the partial products summed over 'model').  An activation is either
+# replicated over 'model' or holds a shard of one dim (:func:`model_dim`).
+# The conjugate pair keeps every replicated activation's gradient whole and
+# equal on every 'model' rank: :func:`copy_to_model` before every product
+# or slice that uses part of a replicated tensor, :func:`reduce_from_model`
+# after every row-parallel product.  Every collective over a one-rank axis
+# is skipped, so a 1 × 1 mesh runs the unsharded step's ops.
+
+def tp_mesh():
+    """The mesh of the enclosing :func:`use_tensor_parallel`, or None."""
+    return getattr(_state, "tp", None)
+
+
+@contextlib.contextmanager
+def use_tensor_parallel(mesh):
+    """Tensor-parallel compute over ``mesh``'s ``'model'`` axis: entered by
+    the sharded train step under the ``fsdp`` and ``replicated`` profiles
+    (never by :func:`use_mesh`: the prefill and decode plans run the same
+    model functions on weights gathered whole)."""
+    prev = tp_mesh()
+    _state.tp = mesh
+    try:
+        yield mesh
+    finally:
+        _state.tp = prev
+
+
+def tp_size() -> int:
+    """The 'model' axis's size inside :func:`use_tensor_parallel`, else 1."""
+    mesh = tp_mesh()
+    return 1 if mesh is None else mesh_shape(mesh)["model"]
+
+
+def tp_rank() -> int:
+    """This rank's coordinate on 'model' (0 outside the context)."""
+    mesh = tp_mesh()
+    return 0 if mesh is None else mesh.get_local_rank("model")
+
+
+def tp_splits(n: int) -> bool:
+    """Whether a logical ``'tp'`` dim of global size ``n`` is sharded over
+    'model' here: inside the context and through the divisibility guard."""
+    return tp_mesh() is not None and n % tp_size() == 0
+
+
+def tp_width(local: int, full: int, what: str) -> bool:
+    """Whether a weight dim of global size ``full`` holding ``local``
+    entries on this rank is a 'model' shard: the spec's guard decides, and a
+    local width that is neither the shard's nor the whole's raises (no
+    fallback to a whole-weight path)."""
+    if tp_mesh() is None:
+        return False
+    split = tp_splits(full)
+    want = full // tp_size() if split else full
+    if local != want:
+        raise ValueError(f"{what}: {local} local entries of {full}, but the 'model' "
+                         f"spec gives {want}")
+    return split
+
+
+def model_dim(x: torch.Tensor) -> int | None:
+    """The dim of ``x`` that holds a 'model' shard (None: replicated)."""
+    return getattr(x, "_model_dim", None)
+
+
+def on_model(x: torch.Tensor, dim: int | None) -> torch.Tensor:
+    """``x`` marked as holding the 'model' shard of ``dim`` (None: marked
+    replicated); outside the context ``x`` as it is."""
+    if tp_mesh() is not None:
+        x._model_dim = None if dim is None else dim % x.dim()
+    return x
+
+
+def _wait(x: torch.Tensor) -> torch.Tensor:
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
+# ``all_gather_tensor`` was renamed ``all_gather_single`` (PyTorch 2.12)
+_all_gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward over 'model'."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _wait(funcol.all_reduce(grad.contiguous(), "sum", ctx.group)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward over 'model', identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _wait(funcol.all_reduce(x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather forward over 'model' along ``dim``, the rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank):
+        ctx.dim, ctx.rank, ctx.chunk = dim, rank, x.shape[dim]
+        return _wait(_all_gather(x.contiguous(), dim, group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.chunk, ctx.chunk), None, None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor entering compute that uses part of it on each
+    'model' rank (a column-parallel product, a slice): identity forward,
+    its partial gradients summed over 'model' backward."""
+    if tp_size() == 1:
+        return x
+    return _CopyToModel.apply(x, tp_mesh().get_group("model"))
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sums summed over 'model' (identity
+    backward: the sum's gradient is each term's); replicated after."""
+    if tp_size() > 1:
+        x = _ReduceFromModel.apply(x, tp_mesh().get_group("model"))
+    return on_model(x, None)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 'model' shards of ``dim`` all-gathered (the rank's slice of the
+    whole gradient backward); replicated after."""
+    if tp_size() == 1:
+        return on_model(x.view_as(x), None)
+    return on_model(_GatherFromModel.apply(x, dim % x.dim(), tp_mesh().get_group("model"),
+                                           tp_rank()), None)
+
+
+def over_model(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The elementwise ``op`` (``"sum"``, ``"max"``) over 'model' of a
+    value no gradient flows through."""
+    if tp_size() == 1:
+        return x
+    return _wait(funcol.all_reduce(x.detach().contiguous(), op, tp_mesh().get_group("model")))
+
+
+def model_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's 'model' shard of dim ``dim`` of a replicated ``x``
+    (through :func:`copy_to_model`, so the whole gradient is summed)."""
+    n = tp_size()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+    step = x.shape[dim] // n
+    return on_model(copy_to_model(x).narrow(dim, tp_rank() * step, step), dim)
+
+
+def column_parallel(x: torch.Tensor, *weights) -> list[torch.Tensor]:
+    """``x @ w`` for a replicated ``x`` and each ``(w, full, what)``, a
+    weight whose output columns (global ``full``) the specs may shard over
+    'model': the rank's columns, marked, or the whole product.  The split
+    products share one :func:`copy_to_model` of ``x``."""
+    xs, out = None, []
+    for w, full, what in weights:
+        if tp_width(w.shape[-1], full, what):
+            xs = copy_to_model(x) if xs is None else xs
+            out.append(on_model(xs @ w, -1))
+        else:
+            out.append(x @ w)
+    return out
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, full: int, what: str) -> torch.Tensor:
+    """``h @ w`` for a weight whose input rows (global ``full``) the specs
+    may shard over 'model': the rank's rows times ``h``'s matching columns
+    (cut from ``h`` where it holds all ``full``), summed over 'model';
+    replicated."""
+    if not tp_width(w.shape[0], full, what):
+        return on_model(h @ w, None)
+    if h.shape[-1] != w.shape[0]:
+        h = model_slice(h, -1)
+    return reduce_from_model(h @ w)
+
+
+def _fsdp_placements(x: DTensor) -> tuple:
+    """``x``'s placements with every axis but 'model' replicated."""
+    return tuple(pl if name == "model" else Replicate()
+                 for name, pl in zip(axis_names(x.device_mesh), x.placements))
+
+
+def gather_fsdp_tree(tree, whole=lambda path: False):
+    """The tensor-parallel gather-on-use: each DTensor leaf gathered over
+    every axis but 'model' (its 'model' shard kept, as a plain tensor); a
+    leaf ``whole(path)`` names gathered whole."""
+    def one(path, x):
+        if not isinstance(x, DTensor):
+            return x
+        if whole(path):
+            return x.full_tensor()
+        return x.redistribute(x.device_mesh, _fsdp_placements(x)).to_local()
+    return map_with_path(one, tree)
+
+
+def reduce_grad_to_shard(g: torch.Tensor, p: DTensor, dims: Sequence[str], *,
+                         whole: bool) -> torch.Tensor:
+    """A rank's gradient of a leaf used as :func:`gather_fsdp_tree` gave it
+    (its 'model' shard, or whole), summed over the batch axes ``dims`` and
+    cut to ``p``'s local shard: a whole gradient is first cut to its
+    'model' shard; over an axis ``p`` is sharded on, a reduce-scatter onto
+    that dim, else an all-reduce (a one-rank axis is skipped)."""
+    mesh = p.device_mesh
+    if whole:
+        g = local_shard(g, _fsdp_placements(p), mesh)
+    placed = dict(zip(axis_names(mesh), p.placements))
+    for d in dims:
+        if mesh_shape(mesh)[d] == 1:
+            continue
+        if isinstance(placed[d], Shard):
+            g = funcol.reduce_scatter_tensor(g.contiguous(), "sum", placed[d].dim,
+                                             mesh.get_group(d))
+        else:
+            g = funcol.all_reduce(g.contiguous(), "sum", mesh.get_group(d))
+        g = _wait(g)
+    return g

@@ -194,7 +194,8 @@ def _place(arg, shardings, mesh):
 
 def run_plan(plan, mesh) -> dict:
     """Run a cell's plan once on fake tensors placed on ``mesh`` and count
-    it: ``{"cost", "collectives", "memory", "seconds"}``."""
+    it: ``{"cost", "collectives", "memory", "seconds", "records"}``, the
+    last every collective's ``(kind, result bytes, group size)`` in order."""
     t0 = time.perf_counter()
     # the kernels' cached constants are real tensors
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -208,7 +209,7 @@ def run_plan(plan, mesh) -> dict:
                      "bytes accessed": float(counter.bytes_accessed),
                      "transcendentals": float(counter.transcendentals)},
             "collectives": count_collectives(counter.collectives), "memory": memory,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "records": counter.collectives}
 
 
 def _fake_group(n_devices: int) -> None:

@@ -12,12 +12,14 @@ placements and the function the cell runs:
                         tokens, pos)
 
 The placements are the reference's (``param_shardings``,
-``decode_cache_shardings``, the batch over ``batch_axes``).  Every plan
-computes by gathering on use (``"parallelism": "gather-on-use"``): the
-train step as ``train.train_step`` describes; the prefill and decode
-functions gather the weights, the decode function also the cache, and run
-the whole decode batch on every rank before cutting the new cache back to
-its placements (tensor-parallel compute is ROADMAP item 19).  The VLM cell
+``decode_cache_shardings``, the batch over ``batch_axes``).  A train plan
+under the ``fsdp`` and ``replicated`` profiles computes tensor-parallel over
+'model' as ``train.train_step`` describes (``"parallelism":
+"tensor-parallel"``, ROADMAP item 19a); the other plans gather on use
+(``"gather-on-use"``): the prefill and decode functions gather the weights
+whole, the decode function also the cache, and run the whole decode batch
+on every rank before cutting the new cache back to its placements (their
+tensor-parallel compute is item 19b).  The VLM cell
 feeds precomputed patch embeddings ``vis_embed``; musicgen's tokenizer is
 stubbed by the token stream itself.
 """
@@ -166,7 +168,9 @@ def plan_cell(cfg, shape: ShapeSpec, mesh, *, opt_cfg: OptimizerConfig | None = 
             fn = make_train_step(cfg, opt_cfg, train_cfg, mesh=mesh)
             return CellPlan(fn=profiled(fn), args=(params, opt_state, batch),
                             in_shardings=(p_sh, o_sh, _batch_shardings(mesh, batch)),
-                            out_shardings=(p_sh, o_sh, None), donate=(0, 1))
+                            out_shardings=(p_sh, o_sh, None), donate=(0, 1),
+                            parallelism=("tensor-parallel" if profile in ("fsdp", "replicated")
+                                         else "gather-on-use"))
 
         if shape.kind == "prefill":
             batch = train_batch_specs(cfg, shape)

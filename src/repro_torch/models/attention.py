@@ -13,8 +13,18 @@ reference's ``preferred_element_type=jnp.float32`` (``attention.py:79,86``)
 asks.  Torch has no such argument and a bfloat16 ``einsum`` returns
 bfloat16, so the operands are upcast first: a bfloat16 × bfloat16 product
 is exact in float32, so only the summation order can differ (TF32 stays
-off, ``device.py``).  The reference's ``constrain(...)`` hints
-(``attention.py:64-66``) are identities on one process and are left out.
+off, ``device.py``).
+
+Tensor-parallel (ROADMAP item 19a, inside the sharded train step's
+``use_tensor_parallel``): q, k and v are column-parallel products, and the
+reference's ``constrain`` on the heads (``attention.py:64-66``) places
+them: heads the model axis divides stay sharded; where the weight's columns
+divide but the heads do not (qwen2-1.5b's 6 heads, a GQA model's kv heads
+on a wide model axis), the projection runs split and its output is
+all-gathered.  Head counts are read from the local tensors.  Sharded q
+heads meet their own kv heads (global head ``h`` → kv ``h // (H/K)``): cut
+from replicated k and v when those are whole.  The output projection is
+row-parallel, its sum over 'model' taken before the residual.
 """
 from __future__ import annotations
 
@@ -22,6 +32,9 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import (column_parallel, constrain, copy_to_model,
+                                              model_dim, on_model, row_parallel, tp_rank,
+                                              tp_splits)
 from repro_torch.models.kvcache import clamped_start
 from repro_torch.models.layers import (Params, apply_rope, dense_init, init_device,
                                        pdtype, rms_head_norm)
@@ -54,32 +67,85 @@ def init_attention(gen, cfg, *, cross: bool = False,
     return p
 
 
+_HEADS = ("batch", None, "tp", None)
+
+
+def _heads(t: torch.Tensor, bias: torch.Tensor | None, n_heads: int, hd: int) -> torch.Tensor:
+    """A projection's output (B,T,cols) + ``bias`` → heads (B,T,n,hd), at
+    the reference's head constraint: columns sharded over 'model' whose
+    heads the axis does not divide are all-gathered first."""
+    dim = model_dim(t)
+    if bias is not None:
+        t = on_model(t + bias, dim)
+    if dim is not None and not tp_splits(n_heads):
+        t, dim = constrain(t, ("batch", None, None)), None
+    h = on_model(t.reshape(*t.shape[:2], -1, hd), None if dim is None else 2)
+    return constrain(h, _HEADS)
+
+
+def _head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rms_head_norm` of heads ``x``; a replicated ``scale`` applied
+    to 'model'-sharded heads enters through ``copy_to_model``."""
+    dim = model_dim(x)
+    if dim is not None:
+        scale = copy_to_model(scale)
+    return on_model(rms_head_norm(scale, x, eps), dim)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    return on_model(apply_rope(x, positions, theta), model_dim(x))
+
+
 def project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor, cfg, *,
                 positions: torch.Tensor | None,
                 kv_positions: torch.Tensor | None = None,
                 rope: bool = True) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q (B,S,H,hd), k,v (B,T,K,hd); applies qk-norm + RoPE."""
+    """Returns q (B,S,H,hd), k,v (B,T,K,hd); applies qk-norm + RoPE.
+    Tensor-parallel: the rank's heads of each (module docstring)."""
     hd = cfg.resolved_head_dim
-    B, S, _ = x.shape
-    T = kv_src.shape[1]
-    q = x @ p["wq"].to(x.dtype)
-    k = kv_src @ p["wk"].to(x.dtype)
-    v = kv_src @ p["wv"].to(x.dtype)
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, T, cfg.n_kv_heads, hd)
-    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+    dt = x.dtype
+    q_cols, kv_cols = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    wq = (p["wq"].to(dt), q_cols, "attn/wq")
+    wk, wv = (p["wk"].to(dt), kv_cols, "attn/wk"), (p["wv"].to(dt), kv_cols, "attn/wv")
+    if kv_src is x:
+        q, k, v = column_parallel(x, wq, wk, wv)
+    else:
+        (q,), (k, v) = column_parallel(x, wq), column_parallel(kv_src, wk, wv)
+    bq, bk, bv = ((p["bq"].to(dt), p["bk"].to(dt), p["bv"].to(dt)) if "bq" in p
+                  else (None, None, None))
+    q = _heads(q, bq, cfg.n_heads, hd)
+    k = _heads(k, bk, cfg.n_kv_heads, hd)
+    v = _heads(v, bv, cfg.n_kv_heads, hd)
     if "q_norm" in p:
-        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+        q = _head_norm(p["q_norm"], q, cfg.norm_eps)
+        k = _head_norm(p["k_norm"], k, cfg.norm_eps)
     if rope and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = _rope(q, positions, cfg.rope_theta)
         kp = kv_positions if kv_positions is not None else positions
-        k = apply_rope(k, kp, cfg.rope_theta)
+        k = _rope(k, kp, cfg.rope_theta)
     return q, k, v
+
+
+def kv_for_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """k and v as the heads ``q`` holds attend to them.  Outside
+    tensor-parallel compute, or with all three sharded alike, as they are.
+    With q's heads sharded over 'model' and k, v replicated, the rank's q
+    heads ``h0 ..`` (global) need kv heads ``h // G``: a contiguous run of
+    whole groups is cut as it is; otherwise each local q head gets its own
+    kv head (one group each)."""
+    if model_dim(q) is None or model_dim(k) is not None:
+        if model_dim(k) is not None and model_dim(q) is None:
+            raise ValueError("sharded kv heads need sharded q heads")
+        return k, v
+    n_local = q.shape[2]
+    h0 = tp_rank() * n_local
+    group = cfg.n_heads // cfg.n_kv_heads
+    if n_local % group == 0:
+        lo, n = h0 // group, n_local // group
+        return (copy_to_model(k).narrow(2, lo, n), copy_to_model(v).narrow(2, lo, n))
+    idx = torch.arange(h0, h0 + n_local, device=k.device) // group
+    return copy_to_model(k)[:, :, idx], copy_to_model(v)[:, :, idx]
 
 
 def _gqa_scores(qb: torch.Tensor, kb: torch.Tensor, scale: float) -> torch.Tensor:
@@ -170,6 +236,7 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg, *, positions: torch.Te
     """Causal self-attention for the training/prefill path."""
     q, k, v = project_qkv(p, x, x, cfg, positions=positions,
                           rope=cfg.pos_embedding == "rope")
+    k, v = kv_for_heads(q, k, v, cfg)
     B, S = x.shape[:2]
     if S <= block_q:  # short sequence: dense with causal mask
         pos = positions[0] if positions.ndim > 1 else positions
@@ -180,31 +247,37 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg, *, positions: torch.Te
     else:
         o = blockwise_attention(q, k, v, window=window, block_q=block_q,
                                 block_kv=block_kv)
-    hd = cfg.resolved_head_dim
-    return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+    return _out_proj(p, o, cfg)
+
+
+def _out_proj(p: Params, o: torch.Tensor, cfg) -> torch.Tensor:
+    """(B,S,heads,hd) → (B,S,D) through ``wo``, row-parallel (replicated out)."""
+    return row_parallel(o.reshape(*o.shape[:2], -1), p["wo"].to(o.dtype),
+                        cfg.n_heads * cfg.resolved_head_dim, "attn/wo")
 
 
 def cross_attention(p: Params, x: torch.Tensor,
                     vis_kv: tuple[torch.Tensor, torch.Tensor], cfg) -> torch.Tensor:
-    """Cross-attention to precomputed vision K/V (B,Nv,K,hd); tanh-gated."""
+    """Cross-attention to precomputed vision K/V (B,Nv,K,hd); tanh-gated
+    (tensor-parallel as self-attention; the gate applies after the sum)."""
     hd = cfg.resolved_head_dim
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
-    q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-    k, v = vis_kv
-    o = dense_attention(q, k, v, None)
-    o = o.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+    q, = column_parallel(x, (p["wq"].to(x.dtype), cfg.n_heads * hd, "attn/wq"))
+    q = _head_norm(p["q_norm"], _heads(q, None, cfg.n_heads, hd), cfg.norm_eps)
+    k, v = kv_for_heads(q, *vis_kv, cfg)
+    o = _out_proj(p, dense_attention(q, k, v, None), cfg)
     return torch.tanh(p["gate_attn"].float()).to(x.dtype) * o
 
 
 def vision_kv(p: Params, vis_embed: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Project vision embeddings to K/V once (shared across decode steps)."""
     hd = cfg.resolved_head_dim
-    B, Nv, _ = vis_embed.shape
-    k = (vis_embed @ p["wk"].to(vis_embed.dtype)).reshape(B, Nv, cfg.n_kv_heads, hd)
-    v = (vis_embed @ p["wv"].to(vis_embed.dtype)).reshape(B, Nv, cfg.n_kv_heads, hd)
-    k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
-    return k, v
+    cols = cfg.n_kv_heads * hd
+    dt = vis_embed.dtype
+    k, v = column_parallel(vis_embed, (p["wk"].to(dt), cols, "attn/wk"),
+                           (p["wv"].to(dt), cols, "attn/wv"))
+    k = _heads(k, None, cfg.n_kv_heads, hd)
+    v = _heads(v, None, cfg.n_kv_heads, hd)
+    return _head_norm(p["k_norm"], k, cfg.norm_eps), v
 
 
 def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,

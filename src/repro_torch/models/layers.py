@@ -11,9 +11,12 @@ float32.  Every ``init_*`` takes an explicit ``torch.Generator`` and a
 no generator.  A draw runs on the generator's device and moves to
 ``device``.
 
-The reference's ``constrain(...)`` sharding hints (``layers.py:119-123``)
-are identities on one process and are left out (item 18d brings the LM
-sharding rules).
+Inside the sharded train step's tensor-parallel context (ROADMAP item
+19a, ``distributed.sharding.use_tensor_parallel``) the MLP, the embedding
+and the LM head compute the rank's 'model' share, as GSPMD partitions the
+reference's at its ``constrain`` sites (``layers.py:119-123``): the MLP's
+gate/up column-parallel and its down row-parallel, the token table
+vocab-parallel both ways.  Elsewhere they compute whole.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (column_parallel, constrain, model_dim, on_model,
+                                              reduce_from_model, row_parallel, tp_rank,
+                                              tp_size, tp_width)
 
 Params = dict[str, Any]
 
@@ -156,16 +162,22 @@ def init_mlp(gen, cfg, d_model: int, d_ff: int, *,
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    dt = x.dtype
+    """The block MLP (width ``cfg.d_ff``); tensor-parallel: gate/up
+    column-parallel, down row-parallel, ``up_bias`` on the rank's columns
+    and ``down_bias`` added once, after the reduction."""
+    dt, f = x.dtype, cfg.d_ff
+    spec = ("batch", None, "tp")
     if cfg.mlp == "swiglu":
-        g = x @ p["gate"].to(dt)
-        u = x @ p["up"].to(dt)
-        return (F.silu(g) * u) @ p["down"].to(dt)
-    h = x @ p["up"].to(dt) + p["up_bias"].to(dt)
+        g, u = column_parallel(x, (p["gate"].to(dt), f, "mlp/gate"),
+                               (p["up"].to(dt), f, "mlp/up"))
+        return row_parallel(F.silu(constrain(g, spec)) * constrain(u, spec), p["down"].to(dt),
+                            f, "mlp/down")
+    h, = column_parallel(x, (p["up"].to(dt), f, "mlp/up"))
+    h = constrain(h, spec) + p["up_bias"].to(dt)
     # jax.nn.gelu defaults to the tanh approximation (reference layers.py:123);
     # torch's default is the erf form
     h = F.gelu(h, approximate="tanh")
-    return h @ p["down"].to(dt) + p["down_bias"].to(dt)
+    return row_parallel(h, p["down"].to(dt), f, "mlp/down") + p["down_bias"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -182,17 +194,27 @@ def init_embedding(gen, cfg, *, device: str | torch.device = "cuda") -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Token rows.  Tensor-parallel with the table's rows on 'model': each
+    rank looks up the tokens its rows hold, zeroes the others, and the
+    ranks' rows are summed (the backward writes the rank's rows only)."""
     # the reference casts the whole table, then gathers (layers.py:142);
     # gathering first and casting the rows gives the same bits
-    return p["tok"][tokens].to(cdtype(cfg))
+    tok = p["tok"]
+    if not tp_width(tok.shape[0], cfg.vocab_size, "embed/tok") or tp_size() == 1:
+        return tok[tokens].to(cdtype(cfg))
+    lo = tp_rank() * tok.shape[0]
+    mine = (tokens >= lo) & (tokens < lo + tok.shape[0])
+    rows = tok[torch.where(mine, tokens - lo, 0)].to(cdtype(cfg))
+    return reduce_from_model(torch.where(mine[..., None], rows, 0.0))
 
 
 def unembed(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits; tensor-parallel, column-parallel over the vocabulary (a tied
+    table's rank rows, as in :func:`embed`), left vocab-sharded."""
     # the reference casts the float32 table on every call; so does the port
-    if cfg.tie_embeddings:
-        logits = x @ p["tok"].to(x.dtype).T
-    else:
-        logits = x @ p["out"].to(x.dtype)
+    w = p["tok"].to(x.dtype).T if cfg.tie_embeddings else p["out"].to(x.dtype)
+    logits, = column_parallel(x, (w, cfg.vocab_size, "unembed"))
     if cfg.logit_softcap:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        logits = on_model(cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap),
+                          model_dim(logits))
     return logits

@@ -17,8 +17,16 @@ token's k slots and the slots are summed in a fixed order, by expert index,
 with no atomics: two CUDA runs are bit-equal.
 
 On a mesh (ROADMAP item 18d) :func:`_ep_active` reads it as the reference
-does and picks the ``constrain`` specs, which are identities until
-tensor-parallel compute (item 19).  The balance loss is a product of two
+does and picks the ``constrain`` specs.  Inside the train step's
+tensor-parallel context (item 19a) they place the experts' compute: with
+the expert tables expert-parallel (``experts_alloc`` divisible by the
+model axis) each rank runs its own experts on the tokens routed to them,
+the router replicated; otherwise the expert hidden is split, gate/up
+column-parallel and down row-parallel.  Under expert parallelism the
+weighted outputs are all-gathered over the expert dim and combined in the
+full order above, so the combine adds the same terms in the same order as
+on one rank (an all-reduce of per-rank partial combines would change that
+order).  The shared expert is a tensor-parallel MLP.  The balance loss is a product of two
 batch means, so with the batch sharded over ranks both means, and the
 router z-loss, are reduced over the batch shards inside the forward
 (``distributed.sharding.batch_mean``): each rank's loss is then the whole
@@ -31,7 +39,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import batch_mean, constrain, current_mesh, mesh_shape
+from repro_torch.distributed.sharding import (batch_mean, column_parallel, constrain,
+                                              copy_to_model, current_mesh, gather_from_model,
+                                              mesh_shape, on_model, reduce_from_model,
+                                              row_parallel, tp_rank, tp_width)
 from repro_torch.models.layers import Params, dense_init, draw_normal, init_device, pdtype
 
 
@@ -131,18 +142,36 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     e_spec = ("batch", "tp", None, None) if ep else ("batch", None, None, None)
     f_spec = ("batch", "tp", None, None) if ep else ("batch", None, None, "tp")
     b_idx = torch.arange(B, device=x.device)[:, None, None]
-    xg = constrain(x[b_idx, tok_ec], e_spec)
-    h = constrain(torch.einsum("becd,edf->becf", xg, p["gate"].to(dt)), f_spec)
-    u = constrain(torch.einsum("becd,edf->becf", xg, p["up"].to(dt)), f_spec)
-    y = torch.einsum("becf,efd->becd", F.silu(h) * u, p["down"].to(dt))
-    y = constrain(y, e_spec)
-    y = y * (gate_ec * live)[..., None].to(dt)
+    gate, up, down = p["gate"].to(dt), p["up"].to(dt), p["down"].to(dt)
+    weight = gate_ec * live
+    # tensor-parallel (module docstring): the rank's experts, or its slice
+    # of every expert's hidden; neither outside the context
+    ep_split = ep and tp_width(gate.shape[0], E_alloc, "moe/gate")
+    f_split = not ep and tp_width(gate.shape[-1], cfg.moe_d_ff, "moe/gate")
+    if ep_split:
+        lo, n = tp_rank() * gate.shape[0], gate.shape[0]
+        xg = on_model(copy_to_model(x)[b_idx, tok_ec[:, lo:lo + n]], 1)
+        weight = copy_to_model(weight)[:, lo:lo + n]
+    else:
+        xg = x[b_idx, tok_ec]
+    xg = constrain(xg, e_spec)
+    xs = copy_to_model(xg) if f_split else xg
+    hidden = 1 if ep_split else (-1 if f_split else None)
+    h = constrain(on_model(torch.einsum("becd,edf->becf", xs, gate), hidden), f_spec)
+    u = constrain(on_model(torch.einsum("becd,edf->becf", xs, up), hidden), f_spec)
+    y = torch.einsum("becf,efd->becd", F.silu(h) * u, down)
+    y = constrain(reduce_from_model(y) if f_split else on_model(y, 1 if ep_split else None),
+                  e_spec)
+    y = y * weight[..., None].to(dt)
+    if ep_split:
+        y = gather_from_model(y, 1)
     out = _combine(y, tok_ec, live, top_i)
 
     if cfg.shared_d_ff:
-        sp = p["shared"]
-        g = F.silu(x @ sp["gate"].to(dt)) * (x @ sp["up"].to(dt))
-        shared = g @ sp["down"].to(dt)
+        sp, f = p["shared"], cfg.shared_d_ff
+        g, su = column_parallel(x, (sp["gate"].to(dt), f, "shared/gate"),
+                                (sp["up"].to(dt), f, "shared/up"))
+        shared = row_parallel(F.silu(g) * su, sp["down"].to(dt), f, "shared/down")
         route = torch.sigmoid((x @ sp["route"].to(dt)).float())
         out = out + shared * route.to(dt)
 

@@ -27,8 +27,16 @@ but saves the outputs of the contractions with no batch dimensions, the
 ``aten.mm`` / ``aten.addmm`` a 3-D activation times a 2-D weight folds to,
 and recomputes everything else (``bmm`` and batched einsums included).  A
 recomputed block runs the same kernels on the same inputs, so the loss and
-the gradients are bit-equal under all three.  The reference's
-``constrain(...)`` hints (``transformer.py:138,151,157,264``) are left out.
+the gradients are bit-equal under all three.  Under remat a block's
+'model' collectives (tensor-parallel, ROADMAP item 19a) run again in the
+backward's recompute, in the same order on every rank: every rank records
+the same graph.
+
+The reference's ``constrain`` sites (``transformer.py:138,151,157,264``)
+are kept: the residual stream replicated over 'model' at each block (each
+row-parallel product's sum was taken where it was made), the logits left
+vocab-sharded for the loss.  Outside the train step's tensor-parallel
+context they are identities.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import moe as moe_mod
@@ -174,7 +183,11 @@ def init_model(gen: torch.Generator | None, cfg, *,
 # Train / prefill forward
 # ---------------------------------------------------------------------------
 
+_REPLICATED = ("batch", None, None)
+
+
 def _dense_block_train(bp: Params, x: torch.Tensor, cfg, positions, window: int):
+    x = constrain(x, _REPLICATED)
     h = apply_norm(bp["norm1"], x, cfg)
     x = x + attn.self_attention_train(bp["attn"], h, cfg, positions=positions,
                                       window=window)
@@ -187,11 +200,13 @@ def _dense_block_train(bp: Params, x: torch.Tensor, cfg, positions, window: int)
 
 
 def _ssm_block_train(bp: Params, x: torch.Tensor, cfg):
+    x = constrain(x, _REPLICATED)
     h = apply_norm(bp["norm1"], x, cfg)
     return x + ssm_mod.apply_ssm_train(bp["ssm"], h, cfg)
 
 
 def _hybrid_block_train(bp: Params, x: torch.Tensor, cfg, positions, window: int):
+    x = constrain(x, _REPLICATED)
     h = apply_norm(bp["norm1"], x, cfg)
     a = attn.self_attention_train(bp["attn"], h, cfg, positions=positions, window=window)
     s = ssm_mod.apply_ssm_train(bp["ssm"], h, cfg)
@@ -201,6 +216,7 @@ def _hybrid_block_train(bp: Params, x: torch.Tensor, cfg, positions, window: int
 
 
 def _cross_block_train(bp: Params, x: torch.Tensor, cfg, vis_embed):
+    x = constrain(x, _REPLICATED)
     h = apply_norm(bp["norm1"], x, cfg)
     kv = attn.vision_kv(bp["attn"], vis_embed, cfg)
     x = x + attn.cross_attention(bp["attn"], h, kv, cfg)
@@ -271,7 +287,7 @@ def forward(params: Params, cfg, *, tokens: torch.Tensor | None = None,
     x = apply_norm(params["final_norm"], x, cfg)
     if last_logits_only:
         x = x[:, -1:]
-    return unembed(params["embed"], x, cfg), aux
+    return constrain(unembed(params["embed"], x, cfg), ("batch", None, "tp")), aux
 
 
 # ---------------------------------------------------------------------------

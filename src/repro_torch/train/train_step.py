@@ -20,12 +20,22 @@ the state is a tree of DTensors placed by the reference's rules
 (``distributed.sharding.param_spec_for``), and the step computes what
 GSPMD computes for the reference's step, up to summation order:
 
-  1. each leaf is gathered on use (``full_tensor()``);
+  1. under the ``fsdp`` and ``replicated`` profiles (ROADMAP item 19a)
+     each leaf is gathered over the fsdp axis only, keeping its 'model'
+     shard (the SSM mixer's leaves whole until item 19b), and the loss runs
+     tensor-parallel over 'model' (``sharding.use_tensor_parallel``): each
+     'model' rank multiplies its own shards, and the logits stay
+     vocab-sharded (the loss's log-sum-exp and gold logit are reduced over
+     'model'; the (B, S, V) logits are never gathered); under ``dp`` and
+     ``dp_zero3``, where 'model' carries batch, each leaf is gathered
+     whole;
   2. :func:`loss_and_grads` runs on the rank's shard of the batch (over
      ``batch_axes(mesh)``), with the loss's batch reductions (the token
      count, the MoE balance means) taken over the batch ranks;
-  3. the gradients are summed over the batch ranks and each is cut to its
-     leaf's shard;
+  3. the gradients are summed over the batch ranks onto each leaf's
+     shard: tensor-parallel, a reduce-scatter over 'data' onto the fsdp
+     dim (an all-reduce for a leaf not sharded over 'data'); under ``dp``
+     and ``dp_zero3`` an all-reduce, then the cut;
   4. with a ``'pod'`` axis the gradients and metrics so far are pod-local
      (the reference's region manual over ``'pod'``), and the shards are
      averaged over the pods by ``compression.pod_mean_tree``:
@@ -34,13 +44,17 @@ GSPMD computes for the reference's step, up to summation order:
      averaged over the pods;
   5. AdamW runs on the local shards.
 
-Tensor-parallel compute is not ported (ROADMAP item 19): under the
-``fsdp`` and ``replicated`` profiles the ``'model'`` ranks compute the same
-batch shard.
+A leaf replicated over 'model' (norms, router, ``down_bias``) gets the
+same gradient on every 'model' rank, bit for bit: the conjugate pair of
+``distributed.sharding`` keeps every replicated activation's gradient
+whole.  On a 1 × 1 mesh every collective is skipped and the step runs the
+unsharded step's ops.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
 from typing import Any, Callable
 
 import torch
@@ -48,10 +62,14 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import compression
 from repro_torch.distributed.sharding import (NamedSharding, P, axis_names, batch_axes,
-                                              batch_sum, distribute_tree, gather_tree,
-                                              local_shard, mesh_shape, param_spec_tree, reduce_over,
-                                              use_batch_reduction, use_manual_axes, use_mesh,
-                                              use_sharding_profile)
+                                              batch_sum, distribute_tree, gather_fsdp_tree,
+                                              gather_tree, local_shard, map_with_path,
+                                              mesh_shape, model_dim, over_model,
+                                              param_spec_tree, reduce_from_model,
+                                              reduce_grad_to_shard, reduce_over, tp_rank,
+                                              tp_size, use_batch_reduction, use_manual_axes,
+                                              use_mesh, use_sharding_profile,
+                                              use_tensor_parallel)
 from repro_torch.device import deterministic
 from repro_torch.models import transformer
 from repro_torch.train.optimizer import OptimizerConfig, OptState, adamw_update, init_opt_state
@@ -93,8 +111,12 @@ def lm_loss(params: Params, cfg, batch: dict, *, train_cfg: TrainConfig,
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     safe = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if model_dim(logits) == logits.dim() - 1 and tp_size() > 1:   # vocab-sharded
+        lse = _ShardedLogSumExp.apply(logits.float())
+        gold = _sharded_gold(logits, safe)
+    else:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - gold.float()
     # sums over the whole batch when it is sharded (shards hold different
     # token counts where labels are -1)
@@ -106,6 +128,36 @@ def lm_loss(params: Params, cfg, batch: dict, *, train_cfg: TrainConfig,
                "moe_aux": aux.get("moe_aux", torch.zeros((), device=loss.device)),
                "tokens": n_tok}
     return loss, metrics
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dim of logits sharded over 'model' on it:
+    the maxima and the sums of exponentials reduced over 'model' (the
+    composition ``torch.logsumexp`` runs); the backward ``grad · exp(x −
+    lse)`` on the rank's columns, as ``torch.logsumexp``'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = over_model(x.amax(-1, keepdim=True), "max")
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        lse = torch.log(over_model(torch.exp(x - m).sum(-1), "sum")) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - lse[..., None])
+
+
+def _sharded_gold(logits: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
+    """Each position's gold logit from vocab-sharded logits: the rank that
+    holds the label's column reads it, the others add zero."""
+    n = logits.shape[-1]
+    lo = tp_rank() * n
+    mine = (safe >= lo) & (safe < lo + n)
+    gold = torch.gather(logits, -1, torch.where(mine, safe - lo, 0)[..., None])[..., 0]
+    return reduce_from_model(torch.where(mine, gold, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +198,12 @@ def _local_batch(batch: dict, mesh) -> dict:
     return {k: one(batch[k], sh) for k, sh in batch_shardings(mesh, batch).items()}
 
 
+def _whole(path: str) -> bool:
+    """The leaves tensor-parallel compute uses whole: the SSM mixer's (its
+    split over 'model' is ROADMAP item 19b)."""
+    return re.search(r"(^|/)ssm/", path) is not None
+
+
 def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, use_kernel):
     names = axis_names(mesh)
     if names not in (("data", "model"), ("pod", "data", "model")):
@@ -153,20 +211,28 @@ def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, u
                          f"not {names}")
     multi_pod = "pod" in names
     manual = ("pod",) if multi_pod else ()
+    tp = train_cfg.sharding_profile in ("fsdp", "replicated")
 
     def step(params: Params, opt_state: OptState, batch: dict):
         with use_mesh(mesh), use_sharding_profile(train_cfg.sharding_profile):
             local = _local_batch(batch, mesh)
-            with use_manual_axes(manual):
+            with use_manual_axes(manual), (use_tensor_parallel(mesh) if tp
+                                           else contextlib.nullcontext()):
                 # the ranks this rank's batch shard shares the loss with: the
                 # batch axes, less 'pod' (the pod block's loss is pod-local)
                 dims = tuple(a for a in batch_axes(mesh) if a not in manual)
-                full = gather_tree(params)
+                used = gather_fsdp_tree(params, _whole) if tp else gather_tree(params)
                 with use_batch_reduction(mesh, dims):
-                    _, metrics, grads = loss_and_grads(full, cfg, local, train_cfg=train_cfg)
-                del full
-                grads = [local_shard(reduce_over(g, mesh, dims), p.placements, mesh)
-                         for g, p in zip(tree_leaves(grads), tree_leaves(params))]
+                    _, metrics, grads = loss_and_grads(used, cfg, local, train_cfg=train_cfg)
+                del used
+                if tp:
+                    whole: list = []
+                    map_with_path(lambda path, _: whole.append(_whole(path)), params)
+                    grads = [reduce_grad_to_shard(g, p, dims, whole=w) for g, p, w in
+                             zip(tree_leaves(grads), tree_leaves(params), whole)]
+                else:
+                    grads = [local_shard(reduce_over(g, mesh, dims), p.placements, mesh)
+                             for g, p in zip(tree_leaves(grads), tree_leaves(params))]
             if multi_pod:
                 grads = compression.pod_mean_tree(grads, compress=train_cfg.pod_compression,
                                                   group=mesh.get_group("pod"))

@@ -149,14 +149,16 @@ def test_run_cell_writes_the_reference_keys(counted, shape):
     assert {"arch", "shape", "mesh", "multi_pod", "n_devices", "ok", "time_lower_s",
             "time_compile_s", "memory", "cost", "collectives"} <= set(rec)
     assert rec["mesh"] == "pod=2 × data=2 × model=2" and rec["n_devices"] == 8
-    assert rec["parallelism"] == "gather-on-use"
+    # the train step computes tensor-parallel over 'model' (ROADMAP item
+    # 19a); the decode plan still gathers the weights whole
+    assert rec["parallelism"] == ("tensor-parallel" if shape == "train_4k" else "gather-on-use")
     assert rec["memory"]["argument_size_in_bytes"] > 0
     assert rec["memory"]["output_size_in_bytes"] > 0
     assert "temp_size_in_bytes" not in rec["memory"]
     assert set(rec["cost"]) == {"flops", "bytes accessed", "transcendentals"}
     assert rec["cost"]["flops"] > 0
     coll = rec["collectives"]
-    assert coll["all-gather"]["count"] > 0          # the weights, gathered on use
+    assert coll["all-gather"]["count"] > 0          # the weights, gathered over 'data' at least
     assert coll["total_operand_bytes"] == sum(v["operand_bytes"] for v in coll.values()
                                               if isinstance(v, dict))
     if shape == "train_4k":

@@ -1550,16 +1550,16 @@ def test_lm_launcher_restart_on_card_is_bitwise(cuda, tmp_path):
 # sharded LM training (ROADMAP item 18d) on a one-rank NCCL mesh
 # ---------------------------------------------------------------------------
 
-def _lm_smoke_run(cuda, mesh, train_cfg, steps=2):
-    """Two ITP-AdamW steps of the float32 qwen3-0.6b smoke config from seed
-    5, on ``mesh`` (None: unsharded); the state gathered whole and the
-    metrics, and the po2 launches of the run."""
+def _lm_smoke_run(cuda, mesh, train_cfg, steps=2, arch="qwen3-0.6b"):
+    """Two ITP-AdamW steps of a float32 smoke config from seed 5, on
+    ``mesh`` (None: unsharded); the state gathered whole and the metrics,
+    and the po2 launches of the run."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import LMBatchSpec, lm_batches
     from repro_torch.distributed.sharding import gather_tree
     from repro_torch.train import OptimizerConfig, init_training, make_train_step
 
-    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     ocfg = OptimizerConfig(lr=3e-4, total_steps=100, warmup_steps=5, po2_update=True)
     params, opt = init_training(torch.Generator(cuda).manual_seed(5), cfg, ocfg, mesh=mesh,
                                 device=cuda)
@@ -1569,6 +1569,10 @@ def _lm_smoke_run(cuda, mesh, train_cfg, steps=2):
     metrics = []
     for k in range(steps):
         batch = next(lm_batches(torch.Generator(cuda).manual_seed(50 + k), spec, n_steps=1))
+        if cfg.family == "vlm":
+            batch["vis_embed"] = 0.5 * torch.randn(
+                (spec.batch, 8, cfg.vis_dim), device=cuda,
+                generator=torch.Generator(cuda).manual_seed(70 + k))
         params, opt, m = step(params, opt, batch)
         metrics.append({name: float(v) for name, v in m.items()})
     torch.cuda.synchronize()
@@ -1607,6 +1611,29 @@ def test_lm_sharded_step_on_nccl_equals_the_unsharded_step(cuda, tmp_path, monke
         monkeypatch.setattr(TTS, "loss_and_grads", roundtrip)
     want, want_m, _, _ = _lm_smoke_run(cuda, None, TrainConfig(remat="full"))
     monkeypatch.undo()
+    assert got_m == want_m
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_tp_step_on_a_one_rank_nccl_mesh_equals_the_unsharded_step(cuda, tmp_path, arch):
+    """Every smoke config's fsdp step on a 1 × 1 NCCL mesh runs inside the
+    tensor-parallel context (ROADMAP item 19a), every one-rank collective
+    skipped: the unsharded step bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import init_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import TrainConfig
+
+    init_process_group(cuda, rank=0, world_size=1,
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_debug_mesh(1, 1, device=cuda)
+        got, got_m, _, _ = _lm_smoke_run(cuda, mesh, TrainConfig(remat="full"), arch=arch)
+    finally:
+        dist.destroy_process_group()
+    want, want_m, _, _ = _lm_smoke_run(cuda, None, TrainConfig(remat="full"), arch=arch)
     assert got_m == want_m
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 

@@ -14,7 +14,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import PartitionSpec as JP
+from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs import get_config as j_get_config
@@ -25,8 +27,11 @@ from repro_torch.configs import ARCH_NAMES, get_config, shapes_for
 from repro_torch.distributed.sharding import (P, NamedSharding, batch_axes, batch_spec,
                                               constrain, decode_cache_shardings, kv_cache_spec,
                                               logical_to_spec, param_shardings, param_spec_for,
-                                              param_spec_tree, placements_for, ssm_cache_specs,
-                                              use_manual_axes, use_mesh, use_sharding_profile)
+                                              model_dim, on_model, param_spec_tree,
+                                              placements_for, ssm_cache_specs, use_manual_axes,
+                                              use_mesh, use_sharding_profile,
+                                              use_tensor_parallel)
+from repro_torch.launch.dryrun import _fake_group
 from repro_torch.launch import specs as TSP
 from repro_torch.models import transformer as TT
 
@@ -262,7 +267,9 @@ def test_plan_cell_shardings_equal_the_reference():
     for shape in shapes_for(cfg):
         plan = TSP.plan_cell(cfg, shape, mesh)
         jplan = JSP.plan_cell(jcfg, shape, jmesh)
-        assert plan.parallelism == "gather-on-use" and plan.donate == jplan.donate
+        # the train plan computes tensor-parallel (ROADMAP item 19a)
+        assert plan.parallelism == ("tensor-parallel" if shape.kind == "train"
+                                    else "gather-on-use") and plan.donate == jplan.donate
         got = [_entries(s.spec) for s in _flat_shardings(plan.in_shardings)]
         want = [_entries(s.spec) for s in jax.tree_util.tree_leaves(
             jplan.in_shardings, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))]
@@ -288,6 +295,11 @@ def _flat_shardings(tree) -> list:
 
 
 def test_param_shardings_carry_the_specs_and_constrain_is_the_identity():
+    """``constrain`` is the identity outside the tensor-parallel context (a
+    mesh alone does not switch it on: the prefill and decode plans run
+    under ``use_mesh``); inside, on a fake ``1 × 2`` group, it keeps a
+    tensor whose 'model' dim the spec names, all-gathers one whose spec
+    drops 'model', and raises on any other transition."""
     cfg = get_config("qwen3-0.6b")
     mesh = MESHES["single"]
     meta = TT.init_model(None, cfg, device="meta")
@@ -297,6 +309,25 @@ def test_param_shardings_carry_the_specs_and_constrain_is_the_identity():
     x = torch.ones(2, 3)
     with use_mesh(mesh):
         assert constrain(x, ("batch", None)) is x
+    _fake_group(2)
+    try:
+        tp = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+        heads = ("batch", None, "tp", None)
+        with use_mesh(tp):
+            h = torch.ones(2, 5, 3, 8)
+            assert constrain(h, heads) is h and model_dim(h) is None
+        with use_tensor_parallel(tp):
+            h = on_model(torch.ones(2, 5, 3, 8), 2)          # 3 of 6 heads
+            assert constrain(h, heads) is h
+            g = constrain(h, ("batch", None, None, None))     # the spec drops 'model'
+            assert tuple(g.shape) == (2, 5, 6, 8) and model_dim(g) is None
+            # replicated → sharded, and a shard of another dim: refused
+            with pytest.raises(ValueError, match="cannot move"):
+                constrain(torch.ones(2, 5, 6, 8), heads)
+            with pytest.raises(ValueError, match="cannot move"):
+                constrain(on_model(torch.ones(2, 5, 6, 4), 3), heads)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -178,11 +178,23 @@ printed on lines of its own:
              reduced-precision bf16 reduction on and off; then the launcher's
              LM mode on the card at smoke size with a failure injected: one
              restart, the final state bit-equal to an uninterrupted run;
-17. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
+17. lm_sharded — sharded LM training and the serving plans on a 1 × 1 NCCL
+             mesh (ROADMAP items 18d, 19a, 19b): qwen3-0.6b's ITP-AdamW
+             step at lm_train's shape tensor-parallel (fsdp) ≡ the
+             unsharded step and the gather-on-use (dp) step, bitwise; the
+             pod branch ≡ the unsharded step fed the plain po2 round trip;
+             mamba2-1.3b's step at full width (48 layers, B=2 × S=1,024,
+             remat full) with its SSM mixer split over 'model' ≡ the
+             unsharded step, bitwise; ``launch.specs``' prefill and decode
+             plans on DTensors for qwen3-0.6b and mamba2-1.3b at full width
+             ≡ ``forward(last_logits_only=True)`` and ``decode_step``
+             (logits and every cache leaf, bitwise); the launcher's
+             ``--data 1 --model 1``; the dry run's flop count of the step;
+18. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving, the fc
    layers of the training runs and phases 12-14, its times at the shape
-   where most of them fall; the matrix, audit and lm_train phases' launches
-   added), the
+   where most of them fall; the matrix, audit, lm_train and lm_sharded
+   phases' launches added), the
    ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
    line.
 
@@ -336,6 +348,14 @@ LM_LAUNCH_FAIL_AT = 7
 # --data 1 --model 1 at lm_train's launcher settings against --data 0
 LM_SHARDED_STEPS = 3
 LM_POD_STEPS = 2
+# ROADMAP item 19b on the 1 x 1 mesh: mamba2-1.3b's train step at full width
+# (its SSM mixer split over 'model'), and the prefill and decode plans of
+# qwen3-0.6b and mamba2-1.3b at full width, each against the unsharded path
+SSM_TRAIN = (2, 1024)
+SSM_TRAIN_STEPS = 3
+PLAN_PREFILL = {LM_DENSE: (2, 2048), LM_SSM: (2, 1024)}
+PLAN_DECODE = {LM_DENSE: dict(batch=8, max_t=4096), LM_SSM: dict(batch=2, max_t=4096)}
+PLAN_DECODE_STEPS = 4
 DRIFT_RMSE = 0.094753                   # paper §IV-A; tests/test_drift.py's band
 DRIFT_RMSE_TOL = 5e-4
 # bytes per element, inputs read once and outputs written once: kernel 7 reads
@@ -2634,8 +2654,10 @@ def _lm_train_full(device, smi: str) -> dict:
     gen = torch.Generator(device=device).manual_seed(90)
     params, opt = init_training(gen, cfg, OptimizerConfig(**LM_TRAIN_OPT, po2_update=True),
                                 device=device)
-    leaves = tree_leaves(params)
-    n_params = sum(a.numel() for a in leaves)
+    # counted without keeping a list of the leaves: a reference to the
+    # initial params would stay allocated through the timed steps
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    n_leaves = len(tree_leaves(params))
     if n_params != LM_PARAMS[LM_DENSE]:
         raise SystemExit(f"lm_train: {LM_DENSE} has {n_params} parameters")
 
@@ -2680,10 +2702,10 @@ def _lm_train_full(device, smi: str) -> dict:
     checksum = sum(int(a.view(torch.int32).sum(dtype=torch.int64))
                    for a in tree_leaves((params, opt.mu, opt.nu)))
     step_s = statistics.median(walls)
-    out = {"params": n_params, "leaves": len(leaves), "steps": n_steps, "step_ms": step_s * 1e3,
+    out = {"params": n_params, "leaves": n_leaves, "steps": n_steps, "step_ms": step_s * 1e3,
            "tok_s": B * S / step_s, "warm_ms": warm_s * 1e3, "peak_gb": peak, "losses": losses,
            "launches": launches, "grad_norm": float(m["grad_norm"])}
-    _phase("lm_train", f"{LM_DENSE} ({n_params} float32 parameters, {len(leaves)} leaves, "
+    _phase("lm_train", f"{LM_DENSE} ({n_params} float32 parameters, {n_leaves} leaves, "
            f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}; bfloat16 compute) "
            f"trained with ITP-AdamW at B={B} x S={S}, remat full, Zipf tokens: "
            f"{out['step_ms']:.2f} ms a step, {out['tok_s']:.1f} tokens/s (median of "
@@ -2695,7 +2717,7 @@ def _lm_train_full(device, smi: str) -> dict:
     out["device_kinds_ms"] = _device_kinds(prof)
     _phase("profile", "  by kind: " + ", ".join(f"{k} {v:.2f} ms"
                                                 for k, v in out["device_kinds_ms"].items()))
-    want = {name: len(leaves) * n_steps for name in launches}
+    want = {name: n_leaves * n_steps for name in launches}
     if launches != want or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"lm_train: launches {launches} (want {want}), losses {losses}")
 
@@ -2836,14 +2858,16 @@ def _start_dryrun_count() -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
-def _timed_steps(step, params, opt, batch_for, n: int, counters, *, profile_last=False):
-    """``n`` steps from ``(params, opt)``: the walls of steps 2.. (the first
-    warms up), the peak GB, the launches of ``counters`` (set to 0 first),
-    the metrics of every step and, with ``profile_last``, one more step
-    under the profiler ``(prof, seconds)``."""
+def _timed_steps(step, init, batch_for, n: int, counters, *, profile_last=False):
+    """``n`` steps from the state ``init()`` draws: the walls of steps 2..
+    (the first warms up), the peak GB, the launches of ``counters`` (set to
+    0 first), the metrics of every step and, with ``profile_last``, one more
+    step under the profiler ``(prof, seconds)``.  The initial state is drawn
+    here, so no caller's reference keeps it allocated through the steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    params, opt = init()
     for fn in counters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -2920,14 +2944,14 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
 
     # (a) the single-pod fsdp step, tensor-parallel; then the gather-on-use
     # step and the unsharded one from the same draw
-    params, opt = draw(mesh)
-    n_leaves = len(tree_leaves(params))
     TS.use_tensor_parallel = counted_enter
     try:
-        params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh), params, opt,
-                                       batch_for, LM_SHARDED_STEPS, counters, profile_last=True)
+        params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh),
+                                       lambda: draw(mesh), batch_for, LM_SHARDED_STEPS, counters,
+                                       profile_last=True)
     finally:
         TS.use_tensor_parallel = enter
+    n_leaves = len(tree_leaves(params))
     sh["tp_steps"] = sum(m is mesh for m in entered)
     prof, prof_s = sh.pop("prof")
     sh["busy"] = _report_profile(prof, prof_s, f"one {LM_DENSE} ITP-AdamW train step on the "
@@ -2937,17 +2961,17 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
     end_sharded = _to_device(gathered(params, opt), torch.device("cpu"))
     del params, opt
     torch.cuda.empty_cache()
-    with use_sharding_profile("dp"):
-        params, opt = draw(mesh)
+    def draw_dp():
+        with use_sharding_profile("dp"):
+            return draw(mesh)
     params, opt, gou = _timed_steps(
         make_train_step(cfg, ocfg, TrainConfig(remat="full", sharding_profile="dp"), mesh),
-        params, opt, batch_for, LM_SHARDED_STEPS + 1, counters)
+        draw_dp, batch_for, LM_SHARDED_STEPS + 1, counters)
     gou.pop("prof")
     end_gou = _to_device(gathered(params, opt), torch.device("cpu"))
     del params, opt
     torch.cuda.empty_cache()
-    params, opt = draw()
-    params, opt, un = _timed_steps(make_train_step(cfg, ocfg, tcfg), params, opt, batch_for,
+    params, opt, un = _timed_steps(make_train_step(cfg, ocfg, tcfg), draw, batch_for,
                                    LM_SHARDED_STEPS + 1, counters)
     un.pop("prof")
     # the unsharded run took one step more (the sharded run's profiled step)
@@ -2981,10 +3005,9 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
 
     # (b) the pod branch: pod-local gradients, the po2 mean over one pod
     pod_mesh = make_debug_mesh(1, 1, pod=1, device=device)
-    params, opt = draw(pod_mesh)
     params, opt, pod = _timed_steps(
         make_train_step(cfg, ocfg, TrainConfig(remat="full", pod_compression=True), pod_mesh),
-        params, opt, batch_for, LM_POD_STEPS, counters)
+        lambda: draw(pod_mesh), batch_for, LM_POD_STEPS, counters)
     pod.pop("prof")
     end_pod = _to_device(gathered(params, opt), torch.device("cpu"))
     del params, opt
@@ -3019,6 +3042,190 @@ def _lm_sharded_steps(device, mesh, smi: str) -> dict:
     return out
 
 
+def _lm_sharded_ssm(device, mesh, smi: str) -> dict:
+    """mamba2-1.3b's ITP-AdamW step at full width on the 1 x 1 mesh under
+    fsdp, its SSM mixer split over 'model' (ROADMAP item 19b), against the
+    unsharded step from the same draw, bitwise."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatchSpec, lm_batches
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.kernels.po2_quant import kernel as PK
+    from repro_torch.launch.mesh import describe
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_training, make_train_step
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_SSM)
+    ocfg = OptimizerConfig(**LM_TRAIN_OPT, po2_update=True)
+    tcfg = TrainConfig(remat="full")
+    spec = LMBatchSpec(batch=SSM_TRAIN[0], seq=SSM_TRAIN[1], vocab=cfg.vocab_size)
+
+    def batch_for(step):
+        return next(lm_batches(torch.Generator(device).manual_seed(2000 + step), spec,
+                               n_steps=1))
+
+    def draw(m=None):
+        return init_training(torch.Generator(device=device).manual_seed(92), cfg, ocfg,
+                             mesh=m, device=device)
+
+    counters = (PK.po2_encode, PK.po2_decode)
+    entered = []
+    enter = TS.use_tensor_parallel
+
+    def counted_enter(m):
+        entered.append(m)
+        return enter(m)
+
+    TS.use_tensor_parallel = counted_enter
+    try:
+        params, opt, sh = _timed_steps(make_train_step(cfg, ocfg, tcfg, mesh),
+                                       lambda: draw(mesh), batch_for, SSM_TRAIN_STEPS, counters)
+    finally:
+        TS.use_tensor_parallel = enter
+    sh.pop("prof")
+    n_leaves = len(tree_leaves(params))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    # the end states are held on the host, so neither run's peak counts the
+    # other's state
+    cpu = torch.device("cpu")
+    end = _to_device({"params": gather_tree(params), "mu": gather_tree(opt.mu),
+                      "nu": gather_tree(opt.nu)}, cpu)
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt, un = _timed_steps(make_train_step(cfg, ocfg, tcfg), draw, batch_for,
+                                   SSM_TRAIN_STEPS, counters)
+    un.pop("prof")
+    same = (_bitwise(end, _to_device({"params": params, "mu": opt.mu, "nu": opt.nu}, cpu))
+            and sh["metrics"] == un["metrics"])
+    tp_steps = sum(m is mesh for m in entered)
+    want = {fn.__name__: n_leaves * SSM_TRAIN_STEPS for fn in counters}
+    B, S = SSM_TRAIN
+    _phase("lm_sharded", f"{LM_SSM} ({n_params} float32 parameters, {cfg.n_layers} layers, d "
+           f"{cfg.d_model}) on the {describe(mesh)} NCCL mesh (fsdp, the SSM mixer split over "
+           f"'model': {tp_steps} steps in the context) at B={B} x S={S}, ITP-AdamW, remat full: "
+           f"{SSM_TRAIN_STEPS} steps == the unsharded step (params, moments, metrics) bitwise "
+           f"{same}; step ms tensor-parallel {[round(w * 1e3, 2) for w in sh['walls']]} / "
+           f"unsharded {[round(w * 1e3, 2) for w in un['walls']]}; peak {sh['peak_gb']:.3f} / "
+           f"{un['peak_gb']:.3f} GB; losses {[round(m['loss'], 6) for m in sh['metrics']]}; po2 "
+           f"launches {sh['launches']} (want {want}) [{smi}]")
+    if not same or sh["launches"] != want or tp_steps != SSM_TRAIN_STEPS:
+        raise SystemExit(f"lm_sharded: the {LM_SSM} step: bitwise {same}, launches "
+                         f"{sh['launches']} (want {want}), tensor-parallel steps {tp_steps}")
+    del params, opt, end
+    torch.cuda.empty_cache()
+    return dict(sh, same=same, unsharded=un, want=want)
+
+
+def _lm_sharded_plans(device, mesh, smi: str) -> dict:
+    """``launch.specs``' prefill and decode plans (ROADMAP item 19b) for
+    qwen3-0.6b and mamba2-1.3b at full width on the 1 x 1 mesh under fsdp,
+    on DTensors, against ``forward(last_logits_only=True)`` and
+    ``decode_step``: logits and every cache leaf bitwise; each call's ms
+    beside the unsharded one's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import (distribute_like, distribute_tree,
+                                                  map_with_path, param_spec_tree)
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models.transformer import decode_step, forward, init_decode_cache, init_model
+
+    entered = []
+    enter = specs.use_tensor_parallel
+
+    def counted_enter(m):
+        entered.append(m)
+        return enter(m)
+
+    def placed(tree, shardings):
+        by_path: dict = {}
+        map_with_path(by_path.__setitem__, shardings)
+        return map_with_path(lambda path, x: distribute_like(x, mesh, by_path[path].placements),
+                             tree)
+
+    def local(tree):
+        out: list = []
+        map_with_path(lambda _, x: out.append(x.to_local() if hasattr(x, "to_local") else x),
+                      tree)
+        return out
+
+    out = {}
+    specs.use_tensor_parallel = counted_enter
+    try:
+        for arch in (LM_DENSE, LM_SSM):
+            cfg = get_config(arch)
+            gen = torch.Generator(device=device).manual_seed(93)
+            params = init_model(gen, cfg, device=device)
+            dparams = distribute_tree(params, param_spec_tree(cfg, params, mesh), mesh)
+            B, S = PLAN_PREFILL[arch]
+            toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+            plan = specs.plan_cell(cfg, ShapeSpec("prefill", S, B, "prefill"), mesh)
+            batch = placed({"tokens": toks}, plan.in_shardings[1])
+            n0 = len(entered)
+            got = plan.fn(dparams, batch)
+            with torch.no_grad():
+                want, _ = forward(params, cfg, tokens=toks, last_logits_only=True)
+            prefill_same = got.equal(want) and len(entered) == n0 + 1
+            plan_ms = statistics.median(_lm_walls(lambda: plan.fn(dparams, batch))) * 1e3
+            with torch.no_grad():
+                plain_ms = statistics.median(_lm_walls(
+                    lambda: forward(params, cfg, tokens=toks, last_logits_only=True))) * 1e3
+            del got, want
+
+            d = PLAN_DECODE[arch]
+            Bd, T = d["batch"], d["max_t"]
+            cache = init_decode_cache(cfg, Bd, T, device=device)
+            for x in _lm_leaves(cache):                      # every slot prefilled
+                x.copy_(torch.randn(x.shape, generator=gen, device=device) * 0.5)
+            twin = map_with_path(lambda _, x: x.clone(), cache)
+            dplan = specs.plan_cell(cfg, ShapeSpec("decode", T, Bd, "decode"), mesh)
+            dcache = placed(cache, dplan.in_shardings[1])
+            steps = torch.randint(0, cfg.vocab_size, (Bd, PLAN_DECODE_STEPS), generator=gen,
+                                  device=device)
+            decode_same, walls, plain_walls = True, [], []
+            n0 = len(entered)
+            with torch.no_grad():
+                for i in range(PLAN_DECODE_STEPS):
+                    pos = T - PLAN_DECODE_STEPS + 1 + i      # the last one past the end
+                    tok = placed({"t": steps[:, i:i + 1]}, {"t": dplan.in_shardings[2]})["t"]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, dcache = dplan.fn(dparams, dcache, tok, pos)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    wl, twin = decode_step(params, cfg, twin, pos, tokens=steps[:, i:i + 1])
+                    torch.cuda.synchronize()
+                    plain_walls.append(time.perf_counter() - t0)
+                    decode_same = decode_same and lg.equal(wl)
+            decode_same = (decode_same and len(entered) == n0 + PLAN_DECODE_STEPS
+                           and all(a.equal(b) for a, b in zip(local(dcache), _lm_leaves(twin))))
+            out[arch] = {"prefill_same": prefill_same, "prefill_ms": plan_ms,
+                         "prefill_plain_ms": plain_ms, "decode_same": decode_same,
+                         "decode_ms": [w * 1e3 for w in walls],
+                         "decode_plain_ms": [w * 1e3 for w in plain_walls],
+                         "parallelism": (plan.parallelism, dplan.parallelism)}
+            _phase("lm_sharded", f"{arch} plans on the {describe(mesh)} mesh ({plan.parallelism}"
+                   f", DTensor weights and cache): prefill B={B} x S={S} == forward("
+                   f"last_logits_only) bitwise {prefill_same}, {plan_ms:.2f} ms against "
+                   f"{plain_ms:.2f}; decode B={Bd} on a {T}-slot cache at positions "
+                   f"{T - PLAN_DECODE_STEPS + 1}..{T} == decode_step (logits, every cache leaf) "
+                   f"bitwise {decode_same}, ms a step {[round(w * 1e3, 3) for w in walls]} "
+                   f"against {[round(w * 1e3, 3) for w in plain_walls]} [{smi}]")
+            if not (prefill_same and decode_same):
+                raise SystemExit(f"lm_sharded: the {arch} plans differ from the unsharded paths "
+                                 f"(prefill {prefill_same}, decode {decode_same})")
+            del params, dparams, cache, twin, dcache
+            torch.cuda.empty_cache()
+    finally:
+        specs.use_tensor_parallel = enter
+    return out
+
+
 def _lm_mesh_launcher(device, smi: str) -> dict:
     """``launch.train``'s LM mode with ``--data 1 --model 1`` (a one-rank
     NCCL group in this process) and a failure injected, against ``--data 0``."""
@@ -3050,11 +3257,13 @@ def _lm_mesh_launcher(device, smi: str) -> dict:
 
 
 def phase_lm_sharded(device, smi: str) -> dict:
-    """Sharded LM training (ROADMAP items 18d, 19a) on the card: (a) the
-    fsdp step on a 1 x 1 NCCL mesh, tensor-parallel over 'model', beside
-    the gather-on-use step, and (b) the pod branch on a 1 x 1 x 1 mesh, each
-    against the unsharded step; (c) their times beside the dry run's flop
-    count of the step; (d) the launcher's mesh mode.  The group is
+    """Sharded LM training and serving plans (ROADMAP items 18d, 19a, 19b) on
+    the card: (a) the fsdp step on a 1 x 1 NCCL mesh, tensor-parallel over
+    'model', beside the gather-on-use step, and (b) the pod branch on a
+    1 x 1 x 1 mesh, each against the unsharded step; mamba2-1.3b's step with
+    its SSM mixer split, and the prefill and decode plans, against the
+    unsharded paths; (c) their times beside the dry run's flop count of the
+    step; (d) the launcher's mesh mode.  The group is
     initialised here on a free localhost port and destroyed before (d),
     which starts its own."""
     import torch
@@ -3068,7 +3277,10 @@ def phase_lm_sharded(device, smi: str) -> dict:
     port = _free_port()
     init_process_group(device, rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{port}")
     try:
-        out = _lm_sharded_steps(device, make_debug_mesh(1, 1, device=device), smi)
+        mesh = make_debug_mesh(1, 1, device=device)
+        out = _lm_sharded_steps(device, mesh, smi)
+        out["ssm"] = _lm_sharded_ssm(device, mesh, smi)
+        out["plans"] = _lm_sharded_plans(device, mesh, smi)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3225,7 +3437,7 @@ def main() -> int:
     for name, n in lm_train["full"]["launches"].items():   # ITP-AdamW at full width
         launches[name] += n
         kernels[name].setdefault("launches_by_shape", {})["lm_train"] = n
-    for run in ("fsdp", "pod"):        # the sharded step and the pod mean at full width
+    for run in ("fsdp", "pod", "ssm"):  # the sharded steps and the pod mean at full width
         for name, n in lm_sharded[run]["launches"].items():
             launches[name] += n
             by_shape = kernels[name].setdefault("launches_by_shape", {})

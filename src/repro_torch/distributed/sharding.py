@@ -31,13 +31,14 @@ communication, each rank cutting its own shard.
 
 GSPMD partitions the reference's compute from these specs.  The port
 stores state by them; under the ``fsdp`` and ``replicated`` profiles the
-train step gathers each leaf over the fsdp axis only and computes each
-``'model'`` rank's share inside :func:`use_tensor_parallel` (ROADMAP item
-19a): the conjugate pair :func:`copy_to_model` / :func:`reduce_from_model`,
-:func:`gather_from_model`, the column- and row-parallel products, and
-:func:`constrain`, which acts there and is the identity elsewhere.  The
-prefill and decode plans still gather every leaf whole (item 19b).  The
-batch reductions GSPMD inserts into a sharded loss (the token
+train step, and the prefill and decode plans (ROADMAP item 19b), gather
+each leaf over the fsdp axis only and compute each ``'model'`` rank's share
+inside :func:`use_tensor_parallel` (item 19a): the conjugate pair
+:func:`copy_to_model` / :func:`reduce_from_model`, :func:`gather_from_model`,
+the column- and row-parallel products, and :func:`constrain`, which acts
+there and is the identity elsewhere.  The decode plan reads each rank's
+cache shard where :func:`decode_cache_shardings` places it
+(:func:`use_decode_layout`).  The batch reductions GSPMD inserts into a sharded loss (the token
 count, the MoE balance means) are :func:`batch_sum` and :func:`batch_mean`
 over the axes :func:`use_batch_reduction` names.  The reference's
 ``shard_map_compat`` has no counterpart: a region manual over ``'pod'`` is
@@ -213,10 +214,10 @@ def sharding_profile() -> str:
     * 'dp_zero3'   — pure-DP compute with weights/opt sharded over the
                      (compute-idle) 'model' axis, gathered on use.
 
-    Under 'fsdp' and 'replicated' the train step computes tensor-parallel
-    over 'model' (ROADMAP item 19a, :func:`use_tensor_parallel`); under
-    'dp' and 'dp_zero3' the model axis carries batch and every weight is
-    gathered whole on use.
+    Under 'fsdp' and 'replicated' the train step and the prefill and decode
+    plans compute tensor-parallel over 'model' (ROADMAP items 19a-19b,
+    :func:`use_tensor_parallel`); under 'dp' and 'dp_zero3' the model axis
+    carries batch and every weight is gathered whole on use.
     """
     return getattr(_state, "profile", "fsdp")
 
@@ -592,12 +593,13 @@ def gather_tree(tree):
     return map_with_path(lambda _, x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
 
 
-def reduce_over(x: torch.Tensor, mesh, dims: Sequence[str]) -> torch.Tensor:
-    """``x`` summed over the ranks of the mesh axes ``dims``, one axis after
-    the other (an axis of one rank is skipped: its sum is ``x``)."""
+def reduce_over(x: torch.Tensor, mesh, dims: Sequence[str], op: str = "sum") -> torch.Tensor:
+    """``x`` reduced by ``op`` (``"sum"``, ``"max"``) over the ranks of the
+    mesh axes ``dims``, one axis after the other (an axis of one rank is
+    skipped: its reduction is ``x``)."""
     for d in dims:
         if mesh_shape(mesh)[d] > 1:
-            x = funcol.all_reduce(x, "sum", mesh.get_group(d))
+            x = funcol.all_reduce(x, op, mesh.get_group(d))
             if isinstance(x, funcol.AsyncCollectiveTensor):
                 x = x.wait()
     return x
@@ -673,9 +675,8 @@ def tp_mesh():
 @contextlib.contextmanager
 def use_tensor_parallel(mesh):
     """Tensor-parallel compute over ``mesh``'s ``'model'`` axis: entered by
-    the sharded train step under the ``fsdp`` and ``replicated`` profiles
-    (never by :func:`use_mesh`: the prefill and decode plans run the same
-    model functions on weights gathered whole)."""
+    the sharded train step and the prefill and decode plans under the
+    ``fsdp`` and ``replicated`` profiles (never by :func:`use_mesh`)."""
     prev = tp_mesh()
     _state.tp = mesh
     try:
@@ -853,29 +854,22 @@ def _fsdp_placements(x: DTensor) -> tuple:
                  for name, pl in zip(axis_names(x.device_mesh), x.placements))
 
 
-def gather_fsdp_tree(tree, whole=lambda path: False):
+def gather_fsdp_tree(tree):
     """The tensor-parallel gather-on-use: each DTensor leaf gathered over
-    every axis but 'model' (its 'model' shard kept, as a plain tensor); a
-    leaf ``whole(path)`` names gathered whole."""
+    every axis but 'model' (its 'model' shard kept, as a plain tensor)."""
     def one(path, x):
         if not isinstance(x, DTensor):
             return x
-        if whole(path):
-            return x.full_tensor()
         return x.redistribute(x.device_mesh, _fsdp_placements(x)).to_local()
     return map_with_path(one, tree)
 
 
-def reduce_grad_to_shard(g: torch.Tensor, p: DTensor, dims: Sequence[str], *,
-                         whole: bool) -> torch.Tensor:
+def reduce_grad_to_shard(g: torch.Tensor, p: DTensor, dims: Sequence[str]) -> torch.Tensor:
     """A rank's gradient of a leaf used as :func:`gather_fsdp_tree` gave it
-    (its 'model' shard, or whole), summed over the batch axes ``dims`` and
-    cut to ``p``'s local shard: a whole gradient is first cut to its
-    'model' shard; over an axis ``p`` is sharded on, a reduce-scatter onto
+    (its 'model' shard), summed over the batch axes ``dims`` onto ``p``'s
+    local shard: over an axis ``p`` is sharded on, a reduce-scatter onto
     that dim, else an all-reduce (a one-rank axis is skipped)."""
     mesh = p.device_mesh
-    if whole:
-        g = local_shard(g, _fsdp_placements(p), mesh)
     placed = dict(zip(axis_names(mesh), p.placements))
     for d in dims:
         if mesh_shape(mesh)[d] == 1:
@@ -887,3 +881,99 @@ def reduce_grad_to_shard(g: torch.Tensor, p: DTensor, dims: Sequence[str], *,
             g = funcol.all_reduce(g.contiguous(), "sum", mesh.get_group(d))
         g = _wait(g)
     return g
+
+
+# ---------------------------------------------------------------------------
+# The decode plan's placements (ROADMAP item 19b)
+# ---------------------------------------------------------------------------
+#
+# The tensor-parallel decode plan (``launch.specs``) runs each rank on its
+# own shard of the batch and of the cache, placed by
+# :func:`decode_cache_shardings`: the batch over the batch axes where it
+# divides, and each cache's context axis T over 'model' where its kv heads do
+# not divide the axis (and over 'data' too with one sequence).
+# :func:`use_decode_layout` tells ``transformer.decode_step`` where they lie.
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLayout:
+    """The mesh axes the decode batch is cut over, and those each cache's T
+    is cut over (by cache field, ``"kv"`` / ``"global_kv"``), in mesh order;
+    ``()`` is whole."""
+
+    mesh: Any
+    batch: tuple[str, ...] = ()
+    seq: Mapping[str, tuple[str, ...]] = dataclasses.field(default_factory=dict)
+
+
+def decode_layout() -> DecodeLayout | None:
+    return getattr(_state, "decode", None)
+
+
+@contextlib.contextmanager
+def use_decode_layout(layout: DecodeLayout | None):
+    prev = decode_layout()
+    _state.decode = layout
+    try:
+        yield layout
+    finally:
+        _state.decode = prev
+
+
+def shard_axes(x, dim: int) -> tuple[str, ...]:
+    """The mesh axes a DTensor's ``dim`` is cut over, in mesh order (a
+    plain tensor: none)."""
+    if not isinstance(x, DTensor):
+        return ()
+    return tuple(name for name, pl in zip(axis_names(x.device_mesh), x.placements)
+                 if isinstance(pl, Shard) and pl.dim == dim)
+
+
+def cut_of(axes: Sequence[str]) -> tuple[int, int]:
+    """``(this rank's index, count)`` of a dim cut over the mesh axes
+    ``axes`` of the decode layout's mesh (the first axis the outer one, as
+    DTensor cuts); ``(0, 1)`` outside a layout."""
+    layout = decode_layout()
+    if layout is None or not axes:
+        return 0, 1
+    coord = dict(zip(axis_names(layout.mesh), layout.mesh.get_coordinate()))
+    shape = mesh_shape(layout.mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * shape[a] + coord[a], n * shape[a]
+    return idx, n
+
+
+def decode_seq(field: str) -> tuple[str, ...]:
+    """The axes the decode layout cuts cache ``field``'s T over."""
+    layout = decode_layout()
+    return () if layout is None else tuple(layout.seq.get(field, ()))
+
+
+def over_decode_axes(x: torch.Tensor, op: str, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` reduced by ``op`` over the decode layout's ``axes`` (no gradient)."""
+    layout = decode_layout()
+    if layout is None:
+        return x
+    return reduce_over(x.contiguous(), layout.mesh, axes, op)
+
+
+def gather_decode_batch(x: torch.Tensor) -> torch.Tensor:
+    """The whole decode batch (dim 0) from each rank's rows: all-gathered
+    over the batch axes, the inner axis first."""
+    layout = decode_layout()
+    if layout is None:
+        return x
+    for a in reversed(layout.batch):
+        if mesh_shape(layout.mesh)[a] > 1:
+            x = _wait(_all_gather(x.contiguous(), 0, layout.mesh.get_group(a)))
+    return x
+
+
+def decode_batch_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows (dim 0) of the whole decode batch ``x``."""
+    layout = decode_layout()
+    idx, n = cut_of(() if layout is None else layout.batch)
+    if n == 1:
+        return x
+    step = x.shape[0] // n
+    return x.narrow(0, idx * step, step)

@@ -72,6 +72,19 @@ def resolve_packed(packed_history: bool, *, depth: int,
     return bool(packed_history) and use_kernel and depth <= 8
 
 
+def default_fused_backend() -> str:
+    """The fused backend this host can run: ``fused`` (the CUDA kernels)
+    where a card is present, else ``fused_interpret`` (their plain
+    versions), so selecting the fused path never silently means the plain
+    version on a machine with a card."""
+    return "fused" if torch.cuda.is_available() else "fused_interpret"
+
+
+def default_interpret() -> bool:
+    """The ``interpret`` flag of :func:`default_fused_backend`."""
+    return resolve_backend(default_fused_backend())[1]
+
+
 def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 

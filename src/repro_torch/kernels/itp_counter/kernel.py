@@ -42,6 +42,17 @@ _CONV_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] 
                   + [ctypes.c_int, ctypes.c_void_p])
 
 
+def counter_delays(words: torch.Tensor, depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Δt formation: uint8 counter words → (delays int32, validity float32).
+
+    A word at value t means the neuron last spiked t steps ago; words
+    saturate at ``depth`` (one past the last valid delay), so the validity
+    gate is ``t <= depth - 1``.  The CUDA kernel forms the same pair in
+    registers (``csrc/itp_counter.cu``)."""
+    t = words.to(torch.int32)
+    return t, (t <= depth - 1).to(torch.float32)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("itp_counter")
     lib.counter_stdp_update.argtypes = _UPDATE_ARGTYPES

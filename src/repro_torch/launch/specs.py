@@ -12,19 +12,28 @@ placements and the function the cell runs:
                         tokens, pos)
 
 The placements are the reference's (``param_shardings``,
-``decode_cache_shardings``, the batch over ``batch_axes``).  A train plan
-under the ``fsdp`` and ``replicated`` profiles computes tensor-parallel over
-'model' as ``train.train_step`` describes (``"parallelism":
-"tensor-parallel"``, ROADMAP item 19a); the other plans gather on use
-(``"gather-on-use"``): the prefill and decode functions gather the weights
-whole, the decode function also the cache, and run the whole decode batch
-on every rank before cutting the new cache back to its placements (their
-tensor-parallel compute is item 19b).  The VLM cell
-feeds precomputed patch embeddings ``vis_embed``; musicgen's tokenizer is
-stubbed by the token stream itself.
+``decode_cache_shardings``, the batch over ``batch_axes``).  Under the
+``fsdp`` and ``replicated`` profiles every plan computes tensor-parallel over
+'model' (``"parallelism": "tensor-parallel"``): the train step as
+``train.train_step`` describes (ROADMAP item 19a), and the prefill and
+decode functions (item 19b) on the rank's shard of the batch, with each
+weight gathered over the fsdp axis only (``gather_fsdp_tree``) inside
+``use_tensor_parallel``.  The prefill's vocab-sharded last-token logits
+(B/data, 1, V/model) are all-gathered over 'model' at the end.  The decode
+function gathers no cache and no token batch: each rank decodes its batch
+rows against its cache shard as ``decode_cache_shardings`` places it (kv
+heads on 'model', or the context T on 'model', and on 'data' too with one
+sequence, ``sharding.use_decode_layout``), writes the new slot where its
+shard holds it, and returns the cache in its input placements.  Under
+``dp`` and ``dp_zero3``, where 'model' carries batch, the prefill and
+decode functions gather every weight whole (``"gather-on-use"``), the
+decode function also the cache and the token batch, and cut the new cache
+back to its placements.  The VLM cell feeds precomputed patch embeddings
+``vis_embed``; musicgen's tokenizer is stubbed by the token stream itself.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -32,10 +41,13 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.distributed.sharding import (NamedSharding, P, batch_axes,
+from repro_torch.distributed.sharding import (DecodeLayout, NamedSharding, P, batch_axes,
                                               decode_cache_shardings, distribute_like,
-                                              gather_tree, map_with_path, mesh_shape,
-                                              param_shardings, use_sharding_profile)
+                                              gather_fsdp_tree, gather_from_model, gather_tree,
+                                              local_shard, map_with_path, mesh_shape,
+                                              model_dim, param_shardings, placements_for,
+                                              shard_axes, use_decode_layout, use_mesh,
+                                              use_sharding_profile, use_tensor_parallel)
 from repro_torch.models import transformer
 from repro_torch.train.optimizer import OptimizerConfig, OptState, init_opt_state
 from repro_torch.train.train_step import TrainConfig, make_train_step
@@ -121,17 +133,44 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def make_prefill_fn(cfg, train_cfg: TrainConfig = TrainConfig()):
+def tensor_parallel(profile: str) -> bool:
+    """Whether a plan under ``profile`` computes tensor-parallel over 'model'."""
+    return profile in ("fsdp", "replicated")
+
+
+@contextlib.contextmanager
+def _tensor_parallel(mesh, on: bool):
+    """``use_tensor_parallel`` on ``mesh`` (with it as the current mesh)
+    where ``on``, else nothing."""
+    if not on:
+        yield
+        return
+    with use_mesh(mesh), use_tensor_parallel(mesh):
+        yield
+
+
+def _vocab_whole(logits):
+    """Vocab-sharded logits all-gathered over 'model' (small: one position)."""
+    return gather_from_model(logits, -1) if model_dim(logits) is not None else logits
+
+
+def make_prefill_fn(cfg, train_cfg: TrainConfig = TrainConfig(), mesh=None):
+    """The prefill's ``(params, batch) → last-token logits`` of the rank's
+    batch rows; with a ``mesh`` under ``fsdp`` or ``replicated``,
+    tensor-parallel over 'model' (module docstring)."""
+    profile = train_cfg.sharding_profile
+    tp = mesh is not None and tensor_parallel(profile)
+
     def step(params, batch):
         kw = {}
         if cfg.family == "vlm":
             kw["vis_embed"] = _local(batch["vis_embed"])
-        with torch.no_grad():
-            logits, _ = transformer.forward(gather_tree(params), cfg,
-                                            tokens=_local(batch["tokens"]),
+        with torch.no_grad(), use_sharding_profile(profile), _tensor_parallel(mesh, tp):
+            logits, _ = transformer.forward(gather_fsdp_tree(params) if tp else gather_tree(params),
+                                            cfg, tokens=_local(batch["tokens"]),
                                             remat=train_cfg.remat, last_logits_only=True,
                                             unroll=train_cfg.unroll, **kw)
-        return logits
+            return _vocab_whole(logits)
     return step
 
 
@@ -143,6 +182,69 @@ def _placed_like(old, new):
     if isinstance(old, DTensor):
         return distribute_like(new, old.device_mesh, old.placements)
     return new
+
+
+def decode_layout_of(cache, mesh) -> DecodeLayout:
+    """Where a placed ``DecodeCache``'s batch (dim 1 of every leaf) and each
+    self-attention cache's T (dim 2) lie on ``mesh``."""
+    leaves: list = []
+    map_with_path(lambda _, x: leaves.append(x), cache)
+    seq = {f: shard_axes(getattr(cache, f).k, 2) for f in ("kv", "global_kv")
+           if getattr(cache, f) is not None}
+    return DecodeLayout(mesh=mesh, batch=shard_axes(leaves[0], 1), seq=seq)
+
+
+def _batch_rows(x, axes: tuple, mesh):
+    """This rank's rows of the token batch ``x`` cut over ``axes``: its
+    local shard where ``x`` is placed so, else cut from a replicated ``x``
+    (no communication either way)."""
+    have = shard_axes(x, 0)
+    if have == axes:
+        return _local(x)
+    if have:
+        raise ValueError(f"tokens cut over {have}, the cache's batch over {axes}")
+    spec = P(axes if axes else None, *([None] * (x.dim() - 1)))
+    return local_shard(_local(x), placements_for(spec, mesh), mesh)
+
+
+def make_decode_fn(cfg, mesh, train_cfg: TrainConfig = TrainConfig()):
+    """The decode's ``(params, cache, tokens, pos) → (logits of the rank's
+    batch rows, cache')`` on ``mesh``: tensor-parallel under ``fsdp`` and
+    ``replicated``, each rank on its batch rows and cache shard, the cache
+    written in place and returned in its placements; gather-on-use under
+    ``dp`` and ``dp_zero3`` (module docstring)."""
+    profile = train_cfg.sharding_profile
+
+    def gathered(params, cache, tokens, pos):
+        olds: dict = {}
+        map_with_path(olds.__setitem__, cache)
+        logits, new = transformer.decode_step(gather_tree(params), cfg, gather_tree(cache), pos,
+                                              tokens=_gathered(tokens),
+                                              unroll=train_cfg.unroll)
+        return logits, map_with_path(lambda path, x: _placed_like(olds[path], x), new)
+
+    def sharded(params, cache, tokens, pos):
+        if cfg.family == "vlm" and cache.cross_k is None:
+            raise ValueError("the decode plan takes a VLM cache with its cross K/V "
+                             "(transformer.precompute_cross_kv)")
+        layout = decode_layout_of(cache, mesh)
+        olds: dict = {}
+        map_with_path(olds.__setitem__, cache)
+        local = map_with_path(lambda _, x: _local(x), cache)
+        toks = _batch_rows(tokens, layout.batch, mesh)
+        with _tensor_parallel(mesh, True), use_decode_layout(layout):
+            logits, new = transformer.decode_step(gather_fsdp_tree(params), cfg, local, pos,
+                                                  tokens=toks, unroll=train_cfg.unroll)
+            logits = _vocab_whole(logits)
+        return logits, map_with_path(
+            lambda path, x: DTensor.from_local(x, mesh, olds[path].placements, run_check=False),
+            new)
+
+    def fn(params, cache, tokens, pos):
+        with torch.no_grad(), use_sharding_profile(profile):
+            step = sharded if tensor_parallel(profile) else gathered
+            return step(params, cache, tokens, pos)
+    return fn
 
 
 def plan_cell(cfg, shape: ShapeSpec, mesh, *, opt_cfg: OptimizerConfig | None = None,
@@ -158,6 +260,7 @@ def plan_cell(cfg, shape: ShapeSpec, mesh, *, opt_cfg: OptimizerConfig | None = 
                 return fn(*a, **kw)
         return wrapped
 
+    parallelism = "tensor-parallel" if tensor_parallel(profile) else "gather-on-use"
     with use_sharding_profile(profile):
         p_sh = param_shardings(cfg, params, mesh)
 
@@ -169,35 +272,26 @@ def plan_cell(cfg, shape: ShapeSpec, mesh, *, opt_cfg: OptimizerConfig | None = 
             return CellPlan(fn=profiled(fn), args=(params, opt_state, batch),
                             in_shardings=(p_sh, o_sh, _batch_shardings(mesh, batch)),
                             out_shardings=(p_sh, o_sh, None), donate=(0, 1),
-                            parallelism=("tensor-parallel" if profile in ("fsdp", "replicated")
-                                         else "gather-on-use"))
+                            parallelism=parallelism)
 
         if shape.kind == "prefill":
             batch = train_batch_specs(cfg, shape)
             batch = {k: v for k, v in batch.items() if k != "labels"}   # inference
-            return CellPlan(fn=profiled(make_prefill_fn(cfg, train_cfg)), args=(params, batch),
+            return CellPlan(fn=profiled(make_prefill_fn(cfg, train_cfg, mesh)),
+                            args=(params, batch),
                             in_shardings=(p_sh, _batch_shardings(mesh, batch)),
-                            out_shardings=None)
+                            out_shardings=None, parallelism=parallelism)
 
         inputs = decode_inputs(cfg, shape, kv_dtype)
         cache = inputs["cache"]
         c_sh = decode_cache_shardings(cache, mesh)
-
-        def fn(params, cache, tokens, pos):
-            olds: dict = {}
-            map_with_path(olds.__setitem__, cache)
-            with torch.no_grad():
-                logits, new = transformer.decode_step(
-                    gather_tree(params), cfg, gather_tree(cache), pos,
-                    tokens=_gathered(tokens), unroll=train_cfg.unroll)
-            return logits, map_with_path(lambda path, x: _placed_like(olds[path], x), new)
 
         n_batch = 1
         for a in batch_axes(mesh):
             n_batch *= mesh_shape(mesh)[a]
         tok_sh = NamedSharding(mesh, P(batch_axes(mesh) if shape.global_batch % n_batch == 0
                                        else None, None))
-        return CellPlan(fn=profiled(fn),
+        return CellPlan(fn=profiled(make_decode_fn(cfg, mesh, train_cfg)),
                         args=(params, cache, inputs["tokens"], shape.seq_len - 1),
                         in_shardings=(p_sh, c_sh, tok_sh, NamedSharding(mesh, P())),
-                        out_shardings=(None, c_sh), donate=(1,))
+                        out_shardings=(None, c_sh), donate=(1,), parallelism=parallelism)

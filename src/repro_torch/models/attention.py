@@ -25,6 +25,18 @@ all-gathered.  Head counts are read from the local tensors.  Sharded q
 heads meet their own kv heads (global head ``h`` → kv ``h // (H/K)``): cut
 from replicated k and v when those are whole.  The output projection is
 row-parallel, its sum over 'model' taken before the residual.
+
+Decode on the tensor-parallel decode plan (ROADMAP item 19b) reads the
+rank's cache shard as ``sharding.kv_cache_spec`` places it: its kv heads
+where the model axis divides them (the rank's q heads meet their own kv
+heads), else its slice of the context T (over 'model', and with one
+sequence over 'data' too).  A rank holding a slice of T scores every q head
+(q is all-gathered over 'model' first) against its slots, and the softmax
+over T becomes a log-sum-exp combine over the T axes
+(:func:`decode_attend`): the global maximum of the ranks' maxima, then each
+rank's sum of exponentials and weighted V from it, summed.  The combine runs
+only where T is cut over more than one rank, so a one-rank mesh runs the
+unsharded arithmetic.
 """
 from __future__ import annotations
 
@@ -33,8 +45,9 @@ import math
 import torch
 
 from repro_torch.distributed.sharding import (column_parallel, constrain, copy_to_model,
-                                              model_dim, on_model, row_parallel, tp_rank,
-                                              tp_splits)
+                                              cut_of, gather_from_model, model_dim, on_model,
+                                              over_decode_axes, row_parallel, tp_mesh, tp_rank,
+                                              tp_size, tp_splits)
 from repro_torch.models.kvcache import clamped_start
 from repro_torch.models.layers import (Params, apply_rope, dense_init, init_device,
                                        pdtype, rms_head_norm)
@@ -254,6 +267,44 @@ def _out_proj(p: Params, o: torch.Tensor, cfg) -> torch.Tensor:
     """(B,S,heads,hd) → (B,S,D) through ``wo``, row-parallel (replicated out)."""
     return row_parallel(o.reshape(*o.shape[:2], -1), p["wo"].to(o.dtype),
                         cfg.n_heads * cfg.resolved_head_dim, "attn/wo")
+
+
+def cached_heads(t: torch.Tensor, cfg) -> torch.Tensor:
+    """A cache's keys or values (…, K', hd), marked as the 'model' shard of
+    the kv heads where they hold fewer than all (``kv_cache_spec`` puts them
+    there when the axis divides them), replicated otherwise."""
+    if tp_mesh() is None:
+        return t
+    n, k = t.shape[-2], cfg.n_kv_heads
+    if n == k:
+        return on_model(t, None)
+    if not tp_splits(k) or n * tp_size() != k:
+        raise ValueError(f"a cache of {n} kv heads of {k} on a model axis of {tp_size()}")
+    return on_model(t, -2)
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                  cfg, seq: tuple[str, ...] = ()) -> torch.Tensor:
+    """One decode step's attention: q (B,1,H',hd) against the rank's cache
+    slots k, v (B,T',K',hd) where ``valid`` (T',) holds; ``seq`` names the
+    mesh axes the cache's T is cut over (module docstring)."""
+    mask = valid[None, None, None, None, :]
+    if cut_of(seq)[1] == 1:
+        k, v = kv_for_heads(q, k, v, cfg)
+        return dense_attention(q, k, v, mask)
+    if "model" in seq and model_dim(q) is not None:
+        q = gather_from_model(q, 2)            # every head scores the rank's slots
+    k, v = kv_for_heads(q, k, v, cfg)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    s = _gqa_scores(q.reshape(B, S, K, H // K, hd), k, 1.0 / math.sqrt(hd))
+    s = torch.where(mask, s, NEG_INF)                        # (B,K,G,S,T')
+    m = over_decode_axes(s.amax(-1, keepdim=True), "max", seq)
+    pexp = torch.exp(s - m)
+    both = torch.cat([_gqa_accum(pexp, v), pexp.sum(-1)[..., None]], dim=-1)
+    both = over_decode_axes(both, "sum", seq)                # (B,K,G,S,hd+1)
+    o = both[..., :hd] / torch.clamp_min(both[..., hd:], 1e-30)
+    return on_model(o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype), model_dim(q))
 
 
 def cross_attention(p: Params, x: torch.Tensor,

@@ -32,6 +32,13 @@ the gradients are bit-equal under all three.  Under remat a block's
 backward's recompute, in the same order on every rank: every rank records
 the same graph.
 
+On the tensor-parallel decode plan (ROADMAP item 19b, ``launch.specs``)
+:func:`decode_step` runs on the rank's batch rows against its cache shard
+(``sharding.use_decode_layout``): each attention layer writes its slot where
+the rank's shard of T holds it (``_attn_decode``), and an MoE layer routes
+the whole batch as one group, as on one rank (the rows all-gathered over the
+batch axes, the rank's rows kept).
+
 The reference's ``constrain`` sites (``transformer.py:138,151,157,264``)
 are kept: the residual stream replicated over 'model' at each block (each
 row-parallel product's sum was taken where it was made), the logits left
@@ -46,7 +53,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, cut_of, decode_batch_rows, decode_seq,
+                                              gather_decode_batch)
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import moe as moe_mod
@@ -338,23 +346,33 @@ def _kv_layer(kv: kvc.KVCache, i: int) -> tuple:
 
 
 def _attn_decode(bp: Params, h: torch.Tensor, kv_slice, pos: int, cfg, *,
-                 window: int = 0) -> torch.Tensor:
+                 window: int = 0, seq: tuple[str, ...] = ()) -> torch.Tensor:
     """Project, write (in place) and attend for one layer; kv_slice =
-    (k, v, ks, vs), each (B,T,...)."""
+    (k, v, ks, vs), each (B,T,...): the whole cache, or on the
+    tensor-parallel decode plan the rank's shard, its T cut over the mesh
+    axes ``seq`` (``attention.decode_attend``).  The global slot (``pos``,
+    mod T for a ring, clamped past the end of a linear cache) is written by
+    the rank whose T slice holds it."""
     k_c, v_c, ks_c, vs_c = kv_slice
     B = h.shape[0]
-    T = k_c.shape[1]
+    t_idx, n_t = cut_of(seq)
+    T_l = k_c.shape[1]
+    T, t0 = T_l * n_t, t_idx * T_l
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     q, k_new, v_new = attn.project_qkv(bp["attn"], h, h, cfg, positions=positions,
                                        rope=cfg.pos_embedding == "rope")
-    slot = pos % T if window > 0 else pos
-    kvc.cache_write(k_c, v_c, ks_c, vs_c, k_new, v_new, slot)
+    if k_new.shape[2] != k_c.shape[2]:
+        raise ValueError(f"decode: {k_new.shape[2]} new kv heads for a cache of "
+                         f"{k_c.shape[2]}")
+    slot = kvc.clamped_start(pos % T if window > 0 else pos, 1, T)
+    if t0 <= slot < t0 + T_l:
+        kvc.cache_write(k_c, v_c, ks_c, vs_c, k_new, v_new, slot - t0)
     k_full, v_full = kvc.cache_read(k_c, v_c, ks_c, vs_c, h.dtype)
-    idx = torch.arange(T, device=h.device)
+    idx = torch.arange(t0, t0 + T_l, device=h.device)
     valid = (idx < min(pos + 1, T)) if window > 0 else (idx <= pos)
-    o = attn.dense_attention(q, k_full, v_full, valid[None, None, None, None, :])
-    hd = cfg.resolved_head_dim
-    return o.reshape(B, 1, cfg.n_heads * hd) @ bp["attn"]["wo"].to(h.dtype)
+    o = attn.decode_attend(q, attn.cached_heads(k_full, cfg), attn.cached_heads(v_full, cfg),
+                           valid, cfg, seq)
+    return attn._out_proj(bp["attn"], o, cfg)
 
 
 def _ssm_decode(bp: Params, h: torch.Tensor, cache: ssm_mod.SSMCache, i: int, cfg):
@@ -395,15 +413,19 @@ def decode_step(params: Params, cfg, cache: DecodeCache, pos: int | torch.Tensor
     elif cfg.family == "vlm":
         x, cache = _vlm_decode(params, cfg, cache, pos, x, vis_embed)
     else:
+        seq = decode_seq("kv")
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             h = apply_norm(bp["norm1"], x, cfg)
             x = x + _attn_decode(bp, h, _kv_layer(cache.kv, i), pos, cfg,
-                                 window=cfg.attn_window)
+                                 window=cfg.attn_window, seq=seq)
             h = apply_norm(bp["norm2"], x, cfg)
             if "moe" in bp:
-                m, _ = moe_mod.apply_moe(bp["moe"], h.reshape(1, B, -1), cfg)
-                m = m.reshape(B, 1, -1)
+                # the batch is one routing group: on the decode plan each
+                # rank routes the whole batch and keeps its rows
+                hb = gather_decode_batch(h)
+                m, _ = moe_mod.apply_moe(bp["moe"], hb.reshape(1, hb.shape[0], -1), cfg)
+                m = decode_batch_rows(m.reshape(hb.shape[0], 1, -1))
             else:
                 m = apply_mlp(bp["mlp"], h, cfg)
             x = x + m
@@ -421,9 +443,9 @@ def _hybrid_decode(params, cfg, cache: DecodeCache, pos: int, x):
     leading axis) untouched."""
     glb, runs = hymba_layer_groups(cfg)
 
-    def layer(bp, x, kv_slice, ssm_i, window):
+    def layer(bp, x, kv_slice, ssm_i, window, seq):
         h = apply_norm(bp["norm1"], x, cfg)
-        a = _attn_decode(bp, h, kv_slice, pos, cfg, window=window)
+        a = _attn_decode(bp, h, kv_slice, pos, cfg, window=window, seq=seq)
         s = _ssm_decode(bp, h, cache.ssm, ssm_i, cfg)
         x = x + 0.5 * (apply_norm(bp["norm_attn"], a, cfg) + apply_norm(bp["norm_ssm"], s, cfg))
         return x + apply_mlp(bp["mlp"], apply_norm(bp["norm2"], x, cfg), cfg)
@@ -432,11 +454,12 @@ def _hybrid_decode(params, cfg, cache: DecodeCache, pos: int, x):
     for gi, run in enumerate(runs):
         for j, layer_id in enumerate(run):
             x = layer(_layer(params["swa_blocks"], offset + j), x,
-                      _kv_layer(cache.kv, offset + j), layer_id, cfg.attn_window)
+                      _kv_layer(cache.kv, offset + j), layer_id, cfg.attn_window,
+                      decode_seq("kv"))
         offset += len(run)
         if gi < len(glb):
             x = layer(_layer(params["global_blocks"], gi), x, _kv_layer(cache.global_kv, gi),
-                      glb[gi], 0)
+                      glb[gi], 0, decode_seq("global_kv"))
     return x
 
 
@@ -459,13 +482,15 @@ def _vlm_decode(params, cfg, cache: DecodeCache, pos: int, x, vis_embed):
         for j in range(_n_stacked(pp["self"])):
             bp = _layer(pp["self"], j)
             h = apply_norm(bp["norm1"], x, cfg)
-            x = x + _attn_decode(bp, h, _kv_layer(cache.kv, n_self), pos, cfg, window=0)
+            x = x + _attn_decode(bp, h, _kv_layer(cache.kv, n_self), pos, cfg, window=0,
+                                 seq=decode_seq("kv"))
             x = x + apply_mlp(bp["mlp"], apply_norm(bp["norm2"], x, cfg), cfg)
             n_self += 1
         # cross block (static K/V, no cache update)
         bp = pp["cross"]
         h = apply_norm(bp["norm1"], x, cfg)
-        x = x + attn.cross_attention(bp["attn"], h, (cache.cross_k[pi], cache.cross_v[pi]),
+        x = x + attn.cross_attention(bp["attn"], h, (attn.cached_heads(cache.cross_k[pi], cfg),
+                                                     attn.cached_heads(cache.cross_v[pi], cfg)),
                                      cfg)
         x = x + apply_mlp(bp["mlp"], apply_norm(bp["norm2"], x, cfg), cfg)
     return x, cache

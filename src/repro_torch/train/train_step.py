@@ -22,7 +22,7 @@ GSPMD computes for the reference's step, up to summation order:
 
   1. under the ``fsdp`` and ``replicated`` profiles (ROADMAP item 19a)
      each leaf is gathered over the fsdp axis only, keeping its 'model'
-     shard (the SSM mixer's leaves whole until item 19b), and the loss runs
+     shard (the SSM mixer's too since item 19b), and the loss runs
      tensor-parallel over 'model' (``sharding.use_tensor_parallel``): each
      'model' rank multiplies its own shards, and the logits stay
      vocab-sharded (the loss's log-sum-exp and gold logit are reduced over
@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import re
 from typing import Any, Callable
 
 import torch
@@ -63,7 +62,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.distributed import compression
 from repro_torch.distributed.sharding import (NamedSharding, P, axis_names, batch_axes,
                                               batch_sum, distribute_tree, gather_fsdp_tree,
-                                              gather_tree, local_shard, map_with_path,
+                                              gather_tree, local_shard,
                                               mesh_shape, model_dim, over_model,
                                               param_spec_tree, reduce_from_model,
                                               reduce_grad_to_shard, reduce_over, tp_rank,
@@ -198,12 +197,6 @@ def _local_batch(batch: dict, mesh) -> dict:
     return {k: one(batch[k], sh) for k, sh in batch_shardings(mesh, batch).items()}
 
 
-def _whole(path: str) -> bool:
-    """The leaves tensor-parallel compute uses whole: the SSM mixer's (its
-    split over 'model' is ROADMAP item 19b)."""
-    return re.search(r"(^|/)ssm/", path) is not None
-
-
 def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, use_kernel):
     names = axis_names(mesh)
     if names not in (("data", "model"), ("pod", "data", "model")):
@@ -221,15 +214,13 @@ def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, u
                 # the ranks this rank's batch shard shares the loss with: the
                 # batch axes, less 'pod' (the pod block's loss is pod-local)
                 dims = tuple(a for a in batch_axes(mesh) if a not in manual)
-                used = gather_fsdp_tree(params, _whole) if tp else gather_tree(params)
+                used = gather_fsdp_tree(params) if tp else gather_tree(params)
                 with use_batch_reduction(mesh, dims):
                     _, metrics, grads = loss_and_grads(used, cfg, local, train_cfg=train_cfg)
                 del used
                 if tp:
-                    whole: list = []
-                    map_with_path(lambda path, _: whole.append(_whole(path)), params)
-                    grads = [reduce_grad_to_shard(g, p, dims, whole=w) for g, p, w in
-                             zip(tree_leaves(grads), tree_leaves(params), whole)]
+                    grads = [reduce_grad_to_shard(g, p, dims)
+                             for g, p in zip(tree_leaves(grads), tree_leaves(params))]
                 else:
                     grads = [local_shard(reduce_over(g, mesh, dims), p.placements, mesh)
                              for g, p in zip(tree_leaves(grads), tree_leaves(params))]

@@ -22,7 +22,7 @@ import pytest
 import torch.distributed as dist
 
 from repro.launch import extrapolate as JX
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import dryrun as TD
 from repro_torch.launch import extrapolate as TX
 
@@ -46,9 +46,10 @@ _SCRIPT = textwrap.dedent("""
     dryrun._fake_group(4)
     try:
         mesh = dryrun._mesh_for(False, (2, 2))
-        prefill = dryrun.run_plan(plan_cell(get_smoke_config("qwen3-0.6b"),
-                                            ShapeSpec("p", 256, 8, "prefill"), mesh), mesh)
-        out["cells"]["prefill"] = dict(prefill, ok=True, seconds=None)
+        plan = plan_cell(get_smoke_config("qwen3-0.6b"), ShapeSpec("p", 256, 8, "prefill"), mesh)
+        prefill = dryrun.run_plan(plan, mesh)
+        out["cells"]["prefill"] = dict(prefill, ok=True, seconds=None,
+                                       parallelism=plan.parallelism)
         shape = ShapeSpec("t", 32, 8, "train")
         for arch in sys.argv[1:]:
             cfg = get_smoke_config(arch)
@@ -135,10 +136,17 @@ def test_extrapolation_matches_the_direct_count(counted, arch):
 
 
 def test_prefill_plan_runs_gathered_on_use(counted):
+    """The prefill plan under ``fsdp`` (ROADMAP item 19b): each weight
+    gathered on use over the fsdp axis only, and the forward tensor-parallel
+    over 'model': one all-reduce for the vocab-parallel embedding and two a
+    layer (attention's and the MLP's row-parallel sums), no other (no
+    gradient, no loss sums)."""
     rec = counted["cells"]["prefill"]
+    assert rec["parallelism"] == "tensor-parallel"
     assert rec["cost"]["flops"] > 0
     assert rec["collectives"]["all-gather"]["count"] > 0
-    assert rec["collectives"]["all-reduce"]["count"] == 0     # no gradient, no loss sums
+    n_layers = get_smoke_config("qwen3-0.6b").n_layers
+    assert rec["collectives"]["all-reduce"]["count"] == 1 + 2 * n_layers
     assert rec["memory"]["output_size_in_bytes"] > 0
 
 
@@ -150,15 +158,15 @@ def test_run_cell_writes_the_reference_keys(counted, shape):
             "time_compile_s", "memory", "cost", "collectives"} <= set(rec)
     assert rec["mesh"] == "pod=2 × data=2 × model=2" and rec["n_devices"] == 8
     # the train step computes tensor-parallel over 'model' (ROADMAP item
-    # 19a); the decode plan still gathers the weights whole
-    assert rec["parallelism"] == ("tensor-parallel" if shape == "train_4k" else "gather-on-use")
+    # 19a), and so does the decode plan (item 19b)
+    assert rec["parallelism"] == "tensor-parallel"
     assert rec["memory"]["argument_size_in_bytes"] > 0
     assert rec["memory"]["output_size_in_bytes"] > 0
     assert "temp_size_in_bytes" not in rec["memory"]
     assert set(rec["cost"]) == {"flops", "bytes accessed", "transcendentals"}
     assert rec["cost"]["flops"] > 0
     coll = rec["collectives"]
-    assert coll["all-gather"]["count"] > 0          # the weights, gathered over 'data' at least
+    assert coll["all-gather"]["count"] > 0          # the weights, gathered over 'data' on use
     assert coll["total_operand_bytes"] == sum(v["operand_bytes"] for v in coll.values()
                                               if isinstance(v, dict))
     if shape == "train_4k":

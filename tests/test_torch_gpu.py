@@ -1638,6 +1638,82 @@ def test_lm_tp_step_on_a_one_rank_nccl_mesh_equals_the_unsharded_step(cuda, tmp_
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_plans_on_a_one_rank_nccl_mesh_equal_the_unsharded_paths(cuda, tmp_path, arch):
+    """``launch.specs``' prefill and decode plans (ROADMAP item 19b) on a 1 × 1
+    NCCL mesh, tensor-parallel on DTensor weights and a DTensor cache, every
+    one-rank collective skipped: ``forward(last_logits_only=True)`` and
+    ``decode_step`` bit for bit (logits and every cache leaf, three steps,
+    the last past the end of the cache)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import (distribute_like, distribute_tree,
+                                                  init_process_group, map_with_path,
+                                                  param_spec_tree)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gen = torch.Generator(cuda).manual_seed(6)
+    params = TT.init_model(gen, cfg, device=cuda)
+    B, S, T = 2, 16, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=cuda)
+    vis = (0.5 * torch.randn((B, 8, cfg.vis_dim), generator=gen, device=cuda)
+           if cfg.family == "vlm" else None)
+    cache = TT.init_decode_cache(cfg, B, T, torch.float32, device=cuda)
+    if vis is not None:
+        with torch.no_grad():
+            ck, cv = TT.precompute_cross_kv(params, cfg, vis)
+        cache = cache._replace(cross_k=ck, cross_v=cv)
+    def leaves(tree):
+        return [x for x in tree_leaves(tree) if x is not None]
+
+    for x in leaves(cache):
+        x.copy_(0.5 * torch.randn(x.shape, generator=gen, device=cuda))
+    twin = map_with_path(lambda _, x: x.clone(), cache)
+
+    def placed(tree, shardings, mesh):
+        by_path = {}
+        map_with_path(by_path.__setitem__, shardings)
+        return map_with_path(lambda path, x: distribute_like(x, mesh, by_path[path].placements),
+                             tree)
+
+    init_process_group(cuda, rank=0, world_size=1,
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_debug_mesh(1, 1, device=cuda)
+        dparams = distribute_tree(params, param_spec_tree(cfg, params, mesh), mesh)
+        plan = plan_cell(cfg, ShapeSpec("p", S, B, "prefill"), mesh)
+        batch = {"tokens": toks} if vis is None else {"tokens": toks, "vis_embed": vis}
+        prefill = plan.fn(dparams, placed(batch, plan.in_shardings[1], mesh))
+        dplan = plan_cell(cfg, ShapeSpec("d", T, B, "decode"), mesh)
+        dcache = placed(cache, dplan.in_shardings[1], mesh)
+        decoded = []
+        for pos in (T - 2, T - 1, T):
+            tok = placed({"t": toks[:, pos - T + 2:pos - T + 3]}, {"t": dplan.in_shardings[2]},
+                         mesh)["t"]
+            lg, dcache = dplan.fn(dparams, dcache, tok, pos)
+            decoded.append(lg)
+        got_cache = [x.to_local() for x in leaves(dcache)]
+    finally:
+        dist.destroy_process_group()
+    assert plan.parallelism == dplan.parallelism == "tensor-parallel"
+    kw = {} if vis is None else {"vis_embed": vis}
+    with torch.no_grad():
+        want, _ = TT.forward(params, cfg, tokens=toks, last_logits_only=True, **kw)
+        assert torch.equal(prefill, want)
+        for pos, got in zip((T - 2, T - 1, T), decoded):
+            want, twin = TT.decode_step(params, cfg, twin, pos,
+                                        tokens=toks[:, pos - T + 2:pos - T + 3])
+            assert torch.equal(got, want), pos
+    want_cache = leaves(twin)
+    assert len(got_cache) == len(want_cache)
+    assert all(torch.equal(a, b) for a, b in zip(got_cache, want_cache))
+
+
 def _tree_roundtrip(tree):
     if isinstance(tree, dict):
         return {k: _tree_roundtrip(v) for k, v in tree.items()}

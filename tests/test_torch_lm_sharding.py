@@ -267,9 +267,8 @@ def test_plan_cell_shardings_equal_the_reference():
     for shape in shapes_for(cfg):
         plan = TSP.plan_cell(cfg, shape, mesh)
         jplan = JSP.plan_cell(jcfg, shape, jmesh)
-        # the train plan computes tensor-parallel (ROADMAP item 19a)
-        assert plan.parallelism == ("tensor-parallel" if shape.kind == "train"
-                                    else "gather-on-use") and plan.donate == jplan.donate
+        # under fsdp every plan computes tensor-parallel (ROADMAP items 19a, 19b)
+        assert plan.parallelism == "tensor-parallel" and plan.donate == jplan.donate
         got = [_entries(s.spec) for s in _flat_shardings(plan.in_shardings)]
         want = [_entries(s.spec) for s in jax.tree_util.tree_leaves(
             jplan.in_shardings, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))]

@@ -35,7 +35,6 @@ from repro.train import train_step as JTS
 from repro_torch import convert
 from repro_torch.distributed.sharding import param_spec_tree
 from repro_torch.models import transformer as TT
-from repro_torch.train.train_step import _whole
 from test_torch_sharded import _spawn
 
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -77,9 +76,8 @@ def _reference_steps(case):
     """The reference's unsharded step ``N_STEPS`` times from the port's
     seed-0 draw: its metrics per step and the final params, mu and nu."""
     cfg = W.config(case)
-    jcfg = dataclasses.replace(j_smoke_config(case.split(":")[0]), dtype="float32")
-    if case == W.TP_EXPERTS:
-        jcfg = dataclasses.replace(jcfg, n_experts=5, n_experts_padded=0)
+    jcfg = dataclasses.replace(j_smoke_config(case.split(":")[0]), dtype="float32",
+                               **W.CASE_REPLACE.get(case, {}))
     arrays = convert.lm_params_to_numpy(
         TT.init_model(torch.Generator().manual_seed(0), cfg, device="cpu"))
     jp = jax.tree_util.tree_map(jnp.asarray, arrays)
@@ -143,12 +141,12 @@ def test_tp_world_matches_the_reference_unsharded_step(worlds, reference_runs, m
 
 @pytest.mark.parametrize("model,case,remat", CASES, ids=map(_ids, CASES))
 def test_each_rank_multiplies_the_specs_widths(worlds, model, case, remat):
-    """The leaves the step multiplies hold the spec's 'model' shard (the SSM
-    mixer's whole), on every rank: the compute is split."""
+    """The leaves the step multiplies hold the spec's 'model' shard, the SSM
+    mixer's too (ROADMAP item 19b), on every rank: the compute is split."""
     cfg = W.config(case)
     want = {}
     for path, (shape, spec) in _specs(cfg, model).items():
-        want[path] = tuple(n if _whole(path) or e != "model" else n // model
+        want[path] = tuple(n if e != "model" else n // model
                            for n, e in zip(shape, spec))
     for r in range(model):
         assert worlds[model, case, remat, r]["widths"] == want
@@ -157,6 +155,8 @@ def test_each_rank_multiplies_the_specs_widths(worlds, model, case, remat):
     assert "tok" in split
     if cfg.family != "ssm":
         assert {"wq", "wo"} <= split and ({"down", "gate"} & split)
+    if cfg.family in ("ssm", "hybrid"):
+        assert {"wz", "wxbc", "conv_w", "conv_b", "norm_scale", "out_proj"} <= split
 
 
 @pytest.mark.parametrize("model,case,remat", CASES, ids=map(_ids, CASES))

@@ -22,6 +22,13 @@ ARCHS = ("llama-3.2-vision-11b", "qwen1.5-32b", "yi-9b", "qwen3-0.6b", "qwen2-1.
 # qwen2-moe with 5 experts: the expert tables do not divide the model axis,
 # so the experts' hidden is split (tensor parallelism inside the experts)
 TP_EXPERTS = "qwen2-moe-a2.7b:5-experts"
+# a case's replace on the smoke config, the same in both packages: the 5
+# experts above; mamba2 with 2 heads (ssm_head_dim 64), which 4 ranks do
+# not divide while its 128 and 160 columns do (hymba-1.5b's 50 heads on
+# 16); mamba2 with 2 groups (its heads cut within each group)
+CASE_REPLACE = {TP_EXPERTS: dict(n_experts=5, n_experts_padded=0),
+                "mamba2-1.3b:head64": dict(ssm_head_dim=64),
+                "mamba2-1.3b:groups2": dict(ssm_groups=2)}
 # (case, remat) per world; the first case of each runs twice
 WORLD_CASES = {
     # and one case under remat="dots" (a selective checkpoint that recomputes
@@ -39,10 +46,8 @@ def config(case: str):
     """A case's float32 smoke config (both packages get the same replace)."""
     from repro_torch.configs import get_smoke_config
     arch = case.split(":")[0]
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    if case == TP_EXPERTS:
-        cfg = dataclasses.replace(cfg, n_experts=5, n_experts_padded=0)
-    return cfg
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                               **CASE_REPLACE.get(case, {}))
 
 
 def batch(cfg, step: int) -> dict:
@@ -83,7 +88,13 @@ def _local_arrays(tree) -> dict:
 
 
 def world_worker(rank: int, store_path: str, model: int, queue) -> None:
-    """One rank of a ``1 × model`` world: every case of ``WORLD_CASES[model]``;
+    """One rank of a ``1 × model`` world: every case of ``WORLD_CASES[model]``
+    (:func:`cases_worker`)."""
+    cases_worker(rank, store_path, model, WORLD_CASES[model], queue)
+
+
+def cases_worker(rank: int, store_path: str, model: int, cases, queue) -> None:
+    """One rank of a ``1 × model`` world: every ``(case, remat)`` of ``cases``;
     puts ``(rank, case, remat, metrics, used widths, local state, state
     arrays or None, twice bit-equal or None)`` per case: the widths of the
     leaves the step multiplies (``gather_fsdp_tree``), the rank's local
@@ -91,7 +102,6 @@ def world_worker(rank: int, store_path: str, model: int, queue) -> None:
     from repro_torch.distributed.sharding import (gather_fsdp_tree, gather_tree,
                                                   init_process_group, map_with_path)
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.train.train_step import _whole
     from repro_torch.tree import tree_leaves
 
     torch.set_num_threads(1)
@@ -99,12 +109,12 @@ def world_worker(rank: int, store_path: str, model: int, queue) -> None:
                        store=dist.FileStore(store_path, model))
     try:
         mesh = make_debug_mesh(1, model, device="cpu")
-        for i, (case, remat) in enumerate(WORLD_CASES[model]):
+        for i, (case, remat) in enumerate(cases):
             cfg = config(case)
             params, opt, metrics = _run(cfg, mesh, remat)
             widths = {}
             map_with_path(lambda path, x: widths.__setitem__(path, tuple(x.shape)),
-                          gather_fsdp_tree(params, _whole))
+                          gather_fsdp_tree(params))
             local = {name: _local_arrays(tree)
                      for name, tree in (("params", params), ("mu", opt.mu), ("nu", opt.nu))}
             # every rank gathers (a collective); rank 0 reports

@@ -575,13 +575,16 @@ def _report_profile(prof, seconds: float, what: str) -> float | None:
     """Print the wall time, the device-busy share and the eight device
     kernels that take the most time of one profiled run; return the busy
     share (None if the trace holds no device events).  Only the device's
-    own events (kernels, copies, memsets) count: a host op's row repeats
-    the device time of the kernels it launched."""
+    own events (kernels, copies, memsets) count: a host op's row, and a
+    profiler span's device-side row, repeat the device time of the kernels
+    launched inside them."""
     import torch
 
     rows = []
     for row in prof.key_averages():
-        if row.device_type != torch.autograd.DeviceType.CUDA:
+        # a span's device-side row covers the kernels launched inside it
+        if (row.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(row, "is_user_annotation", False)):
             continue
         dev_us = getattr(row, "self_device_time_total", 0.0) or getattr(
             row, "self_cuda_time_total", 0.0)

@@ -18,6 +18,14 @@ batch × neurons, ``(depth, B·N)``; the reference's ``lax.scan`` over time is
 a Python loop.  Weights come from a ``torch.Generator`` on the host, or from
 ``w_init`` (a list of arrays, one per learnable layer) so that a test can
 start both packages from one state.
+
+Under a running ``torch.profiler`` the calls mark their layers
+(``repro_torch.spans``): ``repro_torch.snn.run``, ``reset`` and ``step``
+around ``run_snn``, ``reset_dynamics`` and each ``snn_step``, and in each
+learnable layer's step ``product`` (patches, synaptic product, inhibition),
+``neurons`` (the neuron step, WTA), ``update`` (the plan's Δw, training
+only) and ``timing`` (the two history pushes).  With no profiler they cost
+a flag check.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch.core.lif import (IzhikevichParams, LIFParams, izhikevich_init,
 from repro_torch.core.stdp import STDPParams
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import im2col_1d, im2col_2d, resolve_packed
+from repro_torch.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -308,59 +317,62 @@ def _learnable_step(spec: SNNLayerSpec, cfg: SNNConfig, w: torch.Tensor,
     ``spikes_in``: ``(B, *in_shape)`` {0,1}.  Returns ``(w', state', spikes_out)``.
     """
     B = spikes_in.shape[0]
-    s_in = spikes_in.to(torch.float32)
+    with span("repro_torch.snn.product"):
+        s_in = spikes_in.to(torch.float32)
 
-    # --- patches + synaptic accumulation --------------------------------
-    if spec.kind == "fc":
-        patches = s_in.reshape(B, 1, -1)                   # (B, P=1, fan_in)
-        out_shape = (B, w.shape[1])
-    elif spec.kind == "conv2d":
-        p = im2col_2d(s_in, spec.kernel, spec.stride)      # (B, Ho, Wo, K)
-        patches = p.reshape(B, -1, p.shape[-1])
-        out_shape = (B, *p.shape[1:3], w.shape[1])
-    else:                                                   # conv1d
-        p = im2col_1d(s_in, spec.kernel, spec.stride)
-        patches = p.reshape(B, -1, p.shape[-1])
-        out_shape = (B, p.shape[1], w.shape[1])
-    # activity-normalised accumulation: the population-mean active-synapse
-    # count (a per-step scalar) keeps the operating point invariant to width
-    # and sparsity
-    act_mean = torch.mean(torch.sum(patches, dim=-1))
-    i_in = cfg.gain * synaptic_product(patches, w) / torch.clamp(act_mean, min=1.0)
+        # --- patches + synaptic accumulation ----------------------------
+        if spec.kind == "fc":
+            patches = s_in.reshape(B, 1, -1)                   # (B, P=1, fan_in)
+            out_shape = (B, w.shape[1])
+        elif spec.kind == "conv2d":
+            p = im2col_2d(s_in, spec.kernel, spec.stride)      # (B, Ho, Wo, K)
+            patches = p.reshape(B, -1, p.shape[-1])
+            out_shape = (B, *p.shape[1:3], w.shape[1])
+        else:                                                   # conv1d
+            p = im2col_1d(s_in, spec.kernel, spec.stride)
+            patches = p.reshape(B, -1, p.shape[-1])
+            out_shape = (B, p.shape[1], w.shape[1])
+        # activity-normalised accumulation: the population-mean active-synapse
+        # count (a per-step scalar) keeps the operating point invariant to
+        # width and sparsity
+        act_mean = torch.mean(torch.sum(patches, dim=-1))
+        i_in = cfg.gain * synaptic_product(patches, w) / torch.clamp(act_mean, min=1.0)
 
-    # --- lateral inhibition (2-layer SNN soft WTA) -----------------------
-    if cfg.inhibition > 0.0 and st.post_hist is not None:
-        prev = cfg.learning_rule().last_spikes(st.post_hist).reshape(i_in.shape)
-        total = torch.sum(prev, dim=-1, keepdim=True)
-        i_in = i_in - cfg.inhibition * (total - prev)
+        # --- lateral inhibition (2-layer SNN soft WTA) -------------------
+        if cfg.inhibition > 0.0 and st.post_hist is not None:
+            prev = cfg.learning_rule().last_spikes(st.post_hist).reshape(i_in.shape)
+            total = torch.sum(prev, dim=-1, keepdim=True)
+            i_in = i_in - cfg.inhibition * (total - prev)
 
     # --- neuron dynamics --------------------------------------------------
-    i_flat = i_in.reshape(out_shape)
-    theta = st.theta if st.theta is not None else 0.0
-    if cfg.neuron == "izhikevich":
-        neurons, spikes_out = izhikevich_step(st.neurons, cfg.izhi_gain * i_flat,
-                                              cfg.izhi, v_th_offset=theta)
-    else:
-        neurons, spikes_out = lif_step(st.neurons, i_flat, cfg.lif, v_th_offset=theta)
-    if cfg.hard_wta:
-        # per sample (and position) only the most-driven super-threshold
-        # neuron keeps its spike; the first index wins a tie, as jnp.argmax
-        drive = torch.where(spikes_out, i_flat, float("-inf"))
-        winner = torch.argmax(drive, dim=-1, keepdim=True)
-        cols = torch.arange(i_flat.shape[-1], device=i_flat.device)
-        spikes_out = spikes_out & (cols == winner)
-    s_out = spikes_out.to(torch.float32)
+    with span("repro_torch.snn.neurons"):
+        i_flat = i_in.reshape(out_shape)
+        theta = st.theta if st.theta is not None else 0.0
+        if cfg.neuron == "izhikevich":
+            neurons, spikes_out = izhikevich_step(st.neurons, cfg.izhi_gain * i_flat,
+                                                  cfg.izhi, v_th_offset=theta)
+        else:
+            neurons, spikes_out = lif_step(st.neurons, i_flat, cfg.lif, v_th_offset=theta)
+        if cfg.hard_wta:
+            # per sample (and position) only the most-driven super-threshold
+            # neuron keeps its spike; the first index wins a tie, as jnp.argmax
+            drive = torch.where(spikes_out, i_flat, float("-inf"))
+            winner = torch.argmax(drive, dim=-1, keepdim=True)
+            cols = torch.arange(i_flat.shape[-1], device=i_flat.device)
+            spikes_out = spikes_out & (cols == winner)
+        s_out = spikes_out.to(torch.float32)
 
     # --- STDP update through the plan ------------------------------------
     rule = cfg.learning_rule()
     if train:
-        plan = plasticity.make_plan(cfg, w.device)
-        if spec.kind != "fc":
-            dw = plan.conv_delta(st.pre_hist, st.post_hist, patches, s_out,
-                                 in_shape=tuple(spikes_in.shape[1:]), kind=spec.kind,
-                                 kernel=spec.kernel, stride=spec.stride)
-        else:
-            dw = plan.fc_delta(st.pre_hist, st.post_hist, s_in, s_out)
+        with span("repro_torch.snn.update"):
+            plan = plasticity.make_plan(cfg, w.device)
+            if spec.kind != "fc":
+                dw = plan.conv_delta(st.pre_hist, st.post_hist, patches, s_out,
+                                     in_shape=tuple(spikes_in.shape[1:]), kind=spec.kind,
+                                     kernel=spec.kernel, stride=spec.stride)
+            else:
+                dw = plan.fc_delta(st.pre_hist, st.post_hist, s_in, s_out)
         denom = float(B * patches.shape[1])            # P = 1 for fc
         w = torch.clamp(w + cfg.eta * dw / denom, 0.0, 1.0)
         w = _quantise(w, cfg)
@@ -372,11 +384,11 @@ def _learnable_step(spec: SNNLayerSpec, cfg: SNNConfig, w: torch.Tensor,
         theta_new = st.theta * cfg.theta_decay + cfg.theta_plus * rate
 
     # --- record the new spikes (history shift-in) -------------------------
-    st = LayerState(
-        neurons=neurons,
-        pre_hist=rule.step(st.pre_hist, s_in.reshape(-1), depth=cfg.depth),
-        post_hist=rule.step(st.post_hist, s_out.reshape(-1), depth=cfg.depth),
-        theta=theta_new)
+    with span("repro_torch.snn.timing"):
+        pre_hist = rule.step(st.pre_hist, s_in.reshape(-1), depth=cfg.depth)
+        post_hist = rule.step(st.post_hist, s_out.reshape(-1), depth=cfg.depth)
+    st = LayerState(neurons=neurons, pre_hist=pre_hist, post_hist=post_hist,
+                    theta=theta_new)
     return w, st, spikes_out
 
 
@@ -405,15 +417,16 @@ def snn_step(state: SNNState, spikes_in: torch.Tensor, cfg: SNNConfig,
     new_w, new_l = [], []
     wi = 0
     s = spikes_in
-    for spec, lst in zip(cfg.layers, state.layers):
-        if spec.kind.startswith("pool"):
-            s = _pool_step(spec, s)
-            new_l.append(lst)
-        else:
-            w, lst2, s = _learnable_step(spec, cfg, state.weights[wi], lst, s, train)
-            new_w.append(w)
-            new_l.append(lst2)
-            wi += 1
+    with span("repro_torch.snn.step"):
+        for spec, lst in zip(cfg.layers, state.layers):
+            if spec.kind.startswith("pool"):
+                s = _pool_step(spec, s)
+                new_l.append(lst)
+            else:
+                w, lst2, s = _learnable_step(spec, cfg, state.weights[wi], lst, s, train)
+                new_w.append(w)
+                new_l.append(lst2)
+                wi += 1
     return SNNState(weights=tuple(new_w), layers=tuple(new_l)), s
 
 
@@ -423,13 +436,16 @@ def run_snn(state: SNNState, raster: torch.Tensor, cfg: SNNConfig,
 
     Returns ``(state', spike counts of the last layer (B, feature_size))``.
     """
-    raster = torch.as_tensor(raster, device=state.weights[0].device)
-    T, B = raster.shape[:2]
-    x = raster.reshape((T, B) + tuple(cfg.input_shape))
-    counts = torch.zeros((B, feature_size(cfg)), dtype=torch.float32, device=raster.device)
-    for t in range(T):
-        state, s_out = snn_step(state, x[t], cfg, train=train)
-        counts = counts + s_out.reshape(B, -1).to(torch.float32)
+    with span("repro_torch.snn.run"):
+        raster = torch.as_tensor(raster, device=state.weights[0].device)
+        T, B = raster.shape[:2]
+        x = raster.reshape((T, B) + tuple(cfg.input_shape))
+        counts = torch.zeros((B, feature_size(cfg)), dtype=torch.float32,
+                             device=raster.device)
+        for t in range(T):
+            # through the module's name, so that a caller may wrap the step
+            state, s_out = snn_step(state, x[t], cfg, train=train)
+            counts = counts + s_out.reshape(B, -1).to(torch.float32)
     return state, counts
 
 
@@ -437,9 +453,10 @@ def reset_dynamics(state: SNNState, cfg: SNNConfig, batch: int) -> SNNState:
     """Zero neuron states and histories between samples; keep the learned
     weights AND the adaptive thresholds θ (the slow homeostatic variable).
     Draws no weights and advances no generator."""
-    fresh = _fresh_layers(cfg, batch, state.weights[0].device)
-    layers = tuple(f._replace(theta=old.theta) if old.theta is not None else f
-                   for f, old in zip(fresh, state.layers))
+    with span("repro_torch.snn.reset"):
+        fresh = _fresh_layers(cfg, batch, state.weights[0].device)
+        layers = tuple(f._replace(theta=old.theta) if old.theta is not None else f
+                       for f, old in zip(fresh, state.layers))
     return SNNState(weights=state.weights, layers=layers)
 
 

@@ -29,11 +29,15 @@ printed on lines of its own:
              reference and solo == interleaved likewise, 1 B/neuron;
 5. conv_kernels — each im2col conv-delta kernel against its plain PyTorch
              version on the card at the four conv-layer shapes of the paper
-             nets at batch 16 (DCSNN conv1/conv2, CSNN conv1/conv2), depth 7,
-             both pairings: within atol=1e-4, rtol=1e-5, and bit-equal, since
+             nets at batch 16 (DCSNN conv1/conv2, CSNN conv1/conv2) and at
+             the SNN fc layers' batch sums (``FC_CASES``: 16×784×100,
+             16×600×128, 16×480×64, 256×784×6,400, 2,048×600×128), depth 7, both
+             pairings: within atol=1e-4, rtol=1e-5, and bit-equal, since
              both sum exactly in float64; packed ≡ unpacked and two runs
-             bitwise; times from CUDA events and the profiler beside the byte
-             bound and the plain version's time;
+             bitwise; every launch at 256×784×6,400 stores directly and none
+             at 2,048×600×128 (``.direct_launches``); times from CUDA events
+             and the profiler beside the bound and the plain version's time,
+             every shape's in the kernels line's ``layers``;
 6. counter_kernels — the counter-rule kernels (update and conv delta)
              against their plain versions on the card, for each window
              (exact, linear, imstdp): the update at serving's 8×784×100 and
@@ -71,8 +75,9 @@ printed on lines of its own:
 8. train   — the slice's main path, ``train_to_accuracy``: the 6layer-dcsnn
              at full width (28×28×1, conv 12@5×5, conv 24@3×3, fc 128; batch
              16, t_steps 30) on ``backend="fused"`` for 3 batches plus one
-             evaluation, with conv-kernel launches = 2 × t_steps × batches and
-             fc launches = t_steps × batches; the same batches with
+             evaluation, with conv-kernel launches = 3 × t_steps × batches
+             (the two conv layers and the fc layer's batch sum, which is the
+             same contraction with the batch as its rows); the same batches with
              ``quantise=False`` on fused (packed and unpacked) and reference,
              spike counts exact and weights within rtol=atol=1e-5; the
              5layer-csnn at full width (512×2) for one batch, likewise; the
@@ -192,7 +197,7 @@ printed on lines of its own:
              ``--data 1 --model 1``; the dry run's flop count of the step;
 18. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
    kernels 7-10; a dense kernel's launches summed over serving, the fc
-   layers of the training runs and phases 12-14, its times at the shape
+   layers of the counter training runs and phases 12-14, its times at the shape
    where most of them fall; the matrix, audit, lm_train and lm_sharded
    phases' launches added), the
    ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
@@ -254,6 +259,19 @@ CONV_CASES = {"DCSNN conv1": (9216, 25, 12), "DCSNN conv2": (1600, 108, 24),
               "CSNN conv1": (4048, 14, 8), "CSNN conv2": (976, 40, 16)}
 CONV_DEPTH = 7
 CONV_TOL = dict(atol=1e-4, rtol=1e-5)   # the reference's kernel-vs-oracle tolerance
+# (M, K, C) of the SNN fc layers' batch-summed delta on kernels 3-4, the
+# batch as the M rows: the batch-16 fc layers of the train phase and the
+# benchmark's (cells 1 and 2); FC_DIRECT: whether a launch there stores its
+# outputs directly (one split, no scratch), where the card alone decides it
+FC_CASES = {"2layer-snn fc": (16, 784, 100), "DCSNN fc": (16, 600, 128),
+            "CSNN fc": (16, 480, 64), "snn6400 fc b256": (256, 784, 6400),
+            "dcsnn fc b2048": (2048, 600, 128)}
+FC_DIRECT = {"snn6400 fc b256": True, "dcsnn fc b2048": False}
+# a training run's learnable layers, each launching once a step (the sparse
+# runs' conv layers alone, kernel 4 on gathered rows; no fc kernel)
+NET_LAYERS = {"6layer-dcsnn": ("DCSNN conv1", "DCSNN conv2", "DCSNN fc"),
+              "5layer-csnn": ("CSNN conv1", "CSNN conv2", "CSNN fc"),
+              "2layer-snn": ("2layer-snn fc",)}
 # (lanes, n_pre, n_post) of the dense updates: serving's 8 sessions, the paper
 # nets' fc layers at batch 16 (the batch is the lane axis), the engine
 # launcher's population and the sharded engine's 1 x 1 tile
@@ -765,12 +783,15 @@ def phase_conv_kernels(device) -> dict:
     po2 = po2_vectors(STDPParams(), CONV_DEPTH, device=device)
     report = {name: {"max_abs_err": 0.0} for name in
               ("itp_stdp_conv_delta_packed", "itp_stdp_conv_delta")}
-    for layer, (m, k, c) in CONV_CASES.items():
+    wrappers = (CK.itp_stdp_conv_delta_packed, CK.itp_stdp_conv_delta)
+    for layer, (m, k, c) in {**CONV_CASES, **FC_CASES}.items():
         pre = (torch.rand((m, k), generator=gen) < 0.3).float().to(device)
         post = (torch.rand((m, c), generator=gen) < 0.25).float().to(device)
         pre_b = (torch.rand((CONV_DEPTH, m, k), generator=gen) < 0.3).float().to(device)
         post_b = (torch.rand((CONV_DEPTH, m, c), generator=gen) < 0.25).float().to(device)
         pre_w, post_w = pack_bitplanes(pre_b), pack_bitplanes(post_b)
+        for fn in wrappers:
+            fn.direct_launches = 0
         for nearest in (True, False):
             packed = CK.itp_stdp_conv_delta_packed(pre, post, pre_w, post_w, *po2,
                                                    depth=CONV_DEPTH, nearest=nearest)
@@ -797,6 +818,12 @@ def phase_conv_kernels(device) -> dict:
             for name, err in (("itp_stdp_conv_delta_packed", err_p),
                               ("itp_stdp_conv_delta", err_u)):
                 report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        # each wrapper made 4 launches: every one or none stores directly
+        direct = [fn.direct_launches for fn in wrappers]
+        _phase("conv_kernels", f"{layer} ({m}x{k}x{c}): direct-store launches {direct} of 4")
+        if layer in FC_DIRECT and direct != [4 * FC_DIRECT[layer]] * 2:
+            raise SystemExit(f"{layer}: {direct} direct-store launches of 4, want "
+                             f"{4 * FC_DIRECT[layer]}")
 
         timed = {
             "itp_stdp_conv_delta_packed": (
@@ -820,12 +847,35 @@ def phase_conv_kernels(device) -> dict:
                    f"{plain_ms:.5f} ms")
             report[name].setdefault("layers", {})[layer] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                device_ms=device_ms)
-            if layer == "DCSNN conv1":
-                report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, device_ms=device_ms,
-                                    shape=f"{layer} {m}x{k}x{c} depth={CONV_DEPTH}")
+                device_ms=device_ms, shape=f"{layer} {m}x{k}x{c} depth={CONV_DEPTH}",
+                direct=direct[0] > 0)
     return report
+
+
+def _conv_launches(train: dict, kernels: dict) -> dict:
+    """Kernels 3-4's launches in the training runs (the conv layers and the
+    fc layers' batch sums; kernel 4 also the unpacked runs'), by layer: a
+    run's launches fall evenly on its learnable layers.  Each report takes
+    its times at the layer where most of them fall.  Returns the summed
+    launches."""
+    out = {}
+    for name in ("itp_stdp_conv_delta_packed", "itp_stdp_conv_delta"):
+        by_shape = {}
+        for run, r in train.items():
+            n = r["launches"].get(name, 0)
+            if name == "itp_stdp_conv_delta":
+                n += r.get("unpacked_launches") or 0
+            net, _, variant = run.partition(" ")
+            layers = NET_LAYERS[net][:-1] if variant == "sparse" else NET_LAYERS[net]
+            if n % len(layers):
+                raise SystemExit(f"{run}: {n} {name} launches over {len(layers)} layers")
+            for layer in layers if n else ():
+                by_shape[layer] = by_shape.get(layer, 0) + n // len(layers)
+        most = max(by_shape, key=by_shape.get)
+        kernels[name].update(kernels[name]["layers"][most], launches_by_shape=by_shape)
+        _phase("kernels", f"{name}: launches {by_shape}; timed at {most}")
+        out[name] = sum(by_shape.values())
+    return out
 
 
 def _counter_bound(lanes: int, n_pre: int, n_post: int, depth: int,
@@ -1281,9 +1331,11 @@ def _run_batches(cfg, batches, batch, device):
 
 def _net_kernels(cfg) -> tuple[str, str | None]:
     """(conv kernel, fc kernel) a net's training launches: the counter
-    kernels for the counter rules; kernel 4 on gathered rows and no dense
-    kernel on ``sparse``; kernels 4 and 2 on a Rank1Rule's magnitude planes
-    (mstdp); kernels 3 and 1 on the packed history words otherwise."""
+    kernels for the counter rules (kernel 5 per lane in the fc layer);
+    kernel 4 on gathered rows and no dense kernel on ``sparse``; otherwise
+    the conv kernel for both, the fc layer's batch sum as its contraction
+    over the batch: kernel 4 on a Rank1Rule's magnitude planes (mstdp),
+    kernel 3 on the packed history words."""
     from repro_torch.plasticity import Rank1Rule
 
     if cfg.rule in COUNTER_WINDOWS:
@@ -1291,8 +1343,8 @@ def _net_kernels(cfg) -> tuple[str, str | None]:
     if cfg.backend == "sparse":
         return "itp_stdp_conv_delta", None
     if isinstance(cfg.learning_rule(), Rank1Rule):
-        return "itp_stdp_conv_delta", "itp_stdp_update"
-    return "itp_stdp_conv_delta_packed", "itp_stdp_update_packed"
+        return "itp_stdp_conv_delta", "itp_stdp_conv_delta"
+    return "itp_stdp_conv_delta_packed", "itp_stdp_conv_delta_packed"
 
 
 def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
@@ -1321,7 +1373,7 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     want = dict.fromkeys(counters, 0)
     want[conv_kernel] = conv_layers * steps
     if fc_kernel is not None:
-        want[fc_kernel] = steps
+        want[fc_kernel] += steps
     st = res["state"]
     levels = (1 << (cfg.w_bits - 1)) - 1
     finite = all(bool(torch.isfinite(w).all()) for w in st.weights)
@@ -1346,19 +1398,19 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     batches = [b["spikes"].to(device) for b in source.train_batches(0)]
     flt = dataclasses.replace(cfg, quantise=False)
     st_p, cnt_p = _run_batches(flt, batches, tcfg.batch, device)
-    unpacked_launches, unpacked_fc, same_u = None, 0, True
+    unpacked_launches, same_u = None, True
     has_words = conv_kernel == "itp_stdp_conv_delta_packed"   # packed_history applies
     if has_words:
         for fn in counters.values():
             fn.launches = 0
         st_u, cnt_u = _run_batches(dataclasses.replace(flt, packed_history=False), batches,
                                    tcfg.batch, device)
+        # the conv layers and the fc layer's batch sum on bitplanes: kernel 4
         unpacked_launches = counters["itp_stdp_conv_delta"].launches
-        unpacked_fc = counters["itp_stdp_update"].launches
-        if (unpacked_launches != conv_layers * tcfg.t_steps * len(batches)
-                or unpacked_fc != tcfg.t_steps * len(batches)):
-            raise SystemExit(f"{net}: {unpacked_launches} unpacked conv and {unpacked_fc} "
-                             f"unpacked fc launches")
+        kernel2 = counters["itp_stdp_update"].launches
+        if unpacked_launches != (conv_layers + 1) * tcfg.t_steps * len(batches) or kernel2:
+            raise SystemExit(f"{net}: {unpacked_launches} unpacked conv and {kernel2} "
+                             f"kernel-2 launches")
         same_u = (all(torch.equal(a, b) for a, b in zip(cnt_p, cnt_u))
                   and all(torch.equal(a, b) for a, b in zip(st_p.weights, st_u.weights)))
     st_r, cnt_r = _run_batches(dataclasses.replace(flt, backend="reference"), batches,
@@ -1378,7 +1430,6 @@ def _train_net(net: str, cfg, tcfg, device, *, conv_layers: int) -> dict:
     if not (same_u and counts_ok and w_ok and spikes > 0):
         raise SystemExit(f"{net}: fused vs reference / packed vs unpacked parity failed")
     return {"launches": launches, "unpacked_launches": unpacked_launches,
-            "unpacked_fc_launches": unpacked_fc,
             "sim_steps_per_s": steps / res["train_seconds"],
             "samples_per_s": samples / res["train_seconds"],
             "accuracy_curve": res["accuracy_curve"]}
@@ -1576,9 +1627,10 @@ def phase_matrix(device) -> dict:
 
 def _audit_kernel_op(rule: str, backend: str, kind: str) -> str | None:
     """The one kernel operator a step of an audit cell holds: the history
-    rules' packed update / conv delta (kernels 1, 3), the counter rules' (5,
-    6), mstdp's on magnitude planes (2, 4); the sparse conv delta runs kernel
-    4 on the gathered rows; the reference and fused_interpret cells none."""
+    rules' packed engine update (kernel 1) or conv delta (kernel 3, also the
+    fc layers' batch sum), the counter rules' (5, 6), mstdp's on magnitude
+    planes (2, 4); the sparse conv delta runs kernel 4 on the gathered rows;
+    the reference and fused_interpret cells none."""
     conv = kind in ("conv2d", "conv1d")
     if backend == "sparse":
         return "itp_stdp_conv_delta" if conv else None
@@ -1586,7 +1638,7 @@ def _audit_kernel_op(rule: str, backend: str, kind: str) -> str | None:
         return None
     if rule in COUNTER_WINDOWS:
         return "counter_conv_delta" if conv else "counter_stdp_update"
-    base = "itp_stdp_conv_delta" if conv else "itp_stdp_update"
+    base = "itp_stdp_update" if kind == "engine" else "itp_stdp_conv_delta"
     return base + "_packed" if rule in ("itp", "itp_nocomp") else base
 
 
@@ -3322,7 +3374,7 @@ def phase_lm_train(device, smi: str) -> dict:
 
 def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> dict:
     """A dense kernel launches in serving, once per step in every fc layer of
-    the training runs (the batch as lanes), and in the engine paths
+    the counter training runs (the batch as lanes), and in the engine paths
     (``engine``: launches by kernel and shape): its launches by shape,
     summed.  Each dense kernel's report takes its times at the shape where
     most of its launches fall.  Returns the summed launches."""
@@ -3332,16 +3384,12 @@ def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> di
     for name, by_shape in engine.items():
         for shape, n in by_shape.items():
             dense.setdefault(name, {})[shape] = dense.get(name, {}).get(shape, 0) + n
-    for run, r in train.items():
+    for run, r in train.items():   # the other rules' fc layers run kernels 3-4
         net, _, rule = run.partition(" ")
-        counts = {"itp_stdp_update_packed": r["launches"].get("itp_stdp_update_packed", 0),
-                  "itp_stdp_update": (r["launches"].get("itp_stdp_update", 0)
-                                      + r.get("unpacked_fc_launches", 0)),
-                  f"counter_stdp_update[{rule}]": r["launches"].get("counter_stdp_update", 0)}
-        for name, n in counts.items():
-            if n:
-                by_shape = dense.setdefault(name, {})
-                by_shape[fc_case[net]] = by_shape.get(fc_case[net], 0) + n
+        n = r["launches"].get("counter_stdp_update", 0)
+        if n:
+            by_shape = dense.setdefault(f"counter_stdp_update[{rule}]", {})
+            by_shape[fc_case[net]] = by_shape.get(fc_case[net], 0) + n
     for name, by_shape in dense.items():
         most = max(by_shape, key=by_shape.get)
         kernels[name].update(kernels[name]["cases"][most], launches_by_shape=by_shape)
@@ -3392,7 +3440,7 @@ def main() -> int:
     audit = phase_audit(device)
     sparse_mstdp = phase_sparse_mstdp(device)
     # the mstdp serving load launches kernel 2 at serving's shape, the mstdp
-    # and sparse training runs kernels 2 and 4
+    # and sparse training runs kernel 4
     serve["launches"]["itp_stdp_update"] += (
         sparse_mstdp["serving"]["mstdp/fused"]["launches"]["itp_stdp_update"])
     train.update(sparse_mstdp["train"])
@@ -3417,16 +3465,12 @@ def main() -> int:
             for name, n in launched.items():
                 by_shape = engine_launches.setdefault(name, {})
                 by_shape[shape] = by_shape.get(shape, 0) + n
-    dcsnn = train["6layer-dcsnn"]
-    # launches: each kernel's count from the runs of its main path (the conv
-    # kernels DCSNN training, kernel 4 its unpacked run and the mstdp and
-    # sparse DCSNN runs; the counter conv windows the exact DCSNN, linear
-    # CSNN and imstdp DCSNN runs), then the matrix phase's cells
+    # launches: each kernel's count from the runs of its main path (kernels
+    # 3-4 every training run's, kernel 4 the unpacked runs' too; the counter
+    # conv windows the exact DCSNN, linear CSNN and imstdp DCSNN runs), then
+    # the matrix phase's cells
     launches = _dense_launches(serve, train, kernels, engine_launches)
-    launches.update(itp_stdp_conv_delta_packed=dcsnn["launches"]["itp_stdp_conv_delta_packed"],
-                    itp_stdp_conv_delta=dcsnn["unpacked_launches"] + sum(
-                        train[run]["launches"]["itp_stdp_conv_delta"]
-                        for run in ("6layer-dcsnn mstdp", "6layer-dcsnn sparse")))
+    launches.update(_conv_launches(train, kernels))
     for window, run in (("exact", "6layer-dcsnn exact"), ("linear", "5layer-csnn linear"),
                         ("imstdp", "6layer-dcsnn imstdp")):
         launches[f"counter_conv_delta[{window}]"] = train[run]["launches"]["counter_conv_delta"]
@@ -3491,7 +3535,7 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "device_ms": k["device_ms"], "shape": k["shape"],
-         **{key: k[key] for key in ("launches_by_shape", "host_us", "element_pairs")
+         **{key: k[key] for key in ("launches_by_shape", "host_us", "element_pairs", "layers")
             if key in k}}
         for name, k in kernels.items()]}
     bad = [k["name"] for k in line["kernels"]

@@ -81,10 +81,11 @@ FLOAT64_ALLOWLIST: dict[tuple[str, str], str] = {
         "the plain conv deltas (and the reference backend's fc delta) sum the "
         "{0,1}-gated float32 terms exactly in float64 and round once, as the "
         "conv kernels do, so the two agree bit for bit",
-    ("plasticity/apply.py", "fc_delta"):
-        "UpdatePlan.fc_delta sums the per-sample deltas over the batch exactly in "
-        "float64 and rounds once (the sparse fc delta shares it), so every backend "
-        "gives the same bits",
+    ("plasticity/base.py", "lane_sum"):
+        "the fc deltas that keep a per-sample array, the counter rules' on the "
+        "kernel backends (kernel 5 per lane) and every rule's on sparse, sum it over "
+        "the batch exactly in float64 and round once, so they give the bits of the "
+        "other backends' gated contraction",
 }
 
 _PACKAGE = Path(repro_torch.__file__).resolve().parent

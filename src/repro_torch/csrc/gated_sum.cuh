@@ -56,9 +56,27 @@
 //     scratch tensor the wrapper allocates per call (torch.empty: every used
 //     slot is written before it is read); the grid syncs (cooperative_groups);
 //     then every output is summed over its splits by one warp, each lane over
-//     a fixed stride, then a fixed shuffle tree, and rounded to float32 once.
+//     a fixed stride, then a fixed shuffle tree, and rounded to float32 once
+//     (in the general body at 32 splits or fewer, one thread an output runs
+//     the same tree in registers: a warp an output left the wide outputs of
+//     the fc layers' batch sums waiting on one dependent load chain per
+//     warp; on an H100, 2.8 ms of 3.6 at 256 x 784 x 6,400).
 //     No atomics, no state kept across calls on the card, no second launch.
 //     M = 0 gives a zero delta.
+//   * Direct store.  Where the general body's plan has splits == 1 (more
+//     output tiles than co-resident blocks: wide fc shapes such as 256 x 784
+//     x 6,400, where the batch is M), one block sums all M rows of each of
+//     its tiles, so it rounds the tree's double to float32 and stores the
+//     output itself: no scratch (the wrapper passes none), no grid sync, no
+//     per-output pass.  The bits are those of the two-pass path: there an
+//     output's sum over one split is 0.0 + v + 0.0 ..., which is v, since a
+//     double sum that starts at +0 is never -0.  The conv layers of the
+//     paper nets take the one-pass body, split M many ways and keep the two
+//     passes.  On an H100 the direct store takes 256 x 784 x 6,400 from
+//     0.838 to 0.731 ms a call (words; bitplanes 1.922 to 1.827) against the
+//     register pass through a one-split scratch.  plan_scratch() sizes the
+//     scratch a launch takes (none where it stores directly); the launch
+//     refuses a smaller one and reports whether it stored directly.
 //
 // Arithmetic: no tensor cores.  The gated magnitudes are float32, written
 // with __fmul_rn/__fsub_rn so nvcc does not contract them into FMAs.  Spikes
@@ -106,6 +124,7 @@ struct Plan {
   int lanes, groups, tm;   // row lanes; passes per tile; rows per tile = lanes*RPT*groups
   int tiles_k, tiles_c;    // output tiles
   int slots, splits, rows; // grid = splits x slots; rows per split
+  int direct;              // 1: the general body, one split, each block stores its outputs
   int depth, planes, chunks;  // history planes per side (1 or depth); planes staged per
                               // step (a depth chunk); chunks per row tile
   int params;              // parameter floats per side in shared memory (0: read in place)
@@ -418,13 +437,44 @@ __device__ __forceinline__ void contract(float* __restrict__ out, double* __rest
       const int kk = uu / p.ncg;
       const int k = k0 + RK * kk + xy / RC;
       const int c = c0 + RC * (uu - kk * p.ncg) + xy % RC;
-      if (k < K && c < C) partial[(static_cast<size_t>(k) * C + c) * p.splits + split] = v[0];
+      if (k < K && c < C) {
+        if (GENERAL && p.direct) {   // this block summed every row
+          out[static_cast<size_t>(k) * C + c] = __double2float_rn(v[0]);
+        } else {
+          partial[(static_cast<size_t>(k) * C + c) * p.splits + split] = v[0];
+        }
+      }
     }
     __syncthreads();   // s_red is the next tile's magnitude buffer
   }
+  if (GENERAL && p.direct) return;   // the same for every block of the grid
 
   cooperative_groups::this_grid().sync();
 
+  if (GENERAL && p.splits <= 32) {
+    // few splits of wide outputs (the fc layers' batch sums): one thread an
+    // output, the warp pass below done in registers.  There lane l holds
+    // 0 + split l (0 past the splits) and the shuffle tree adds lane l + off
+    // to lane l, off = 16 .. 1; so here, and the bits are the same.  (The
+    // one-pass body's tile is at most 4,096 outputs: the warp pass suffices,
+    // and its registers stay as they are.)
+    for (int o = blockIdx.x * THREADS + tid; o < K * C; o += gridDim.x * THREADS) {
+      const double* src = partial + static_cast<size_t>(o) * p.splits;
+      double v[32];
+#pragma unroll
+      for (int l = 0; l < 32; ++l) v[l] = l < p.splits ? 0.0 + __ldcg(src + l) : 0.0;
+#pragma unroll
+      for (int l = 0; l < 16; ++l) v[l] += v[l + 16];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) v[l] += v[l + 8];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) v[l] += v[l + 4];
+#pragma unroll
+      for (int l = 0; l < 2; ++l) v[l] += v[l + 2];
+      out[o] = __double2float_rn(v[0] + v[1]);
+    }
+    return;
+  }
   // every output summed over its splits: one warp each, each lane's loads in
   // flight 16 at a time (one round trip up to 512 splits), then added in a
   // fixed order
@@ -457,8 +507,7 @@ inline void tile_shape(int K, int C, int* nkg, int* ncg, int* tiles_k, int* tile
   *tiles_c = ceil_div(C, RC * *ncg);
 }
 
-// The most splits a launch of this shape uses: the wrapper's scratch holds
-// K * C * max_splits(M, K, C) doubles.
+// The most splits a launch of this shape uses, on any card.
 inline int max_splits(int M, int K, int C) {
   int nkg, ncg, tiles_k, tiles_c;
   tile_shape(K, C, &nkg, &ncg, &tiles_k, &tiles_c);
@@ -543,28 +592,33 @@ cudaError_t co_resident(Kernel kernel, int device, int smem, int* blocks) {
   return cudaSuccess;
 }
 
-// Plans and launches kernel(args..., plan) on `stream` as one cooperative
-// grid: `fast` (GENERAL = false) when the output tiles span all of K and C,
-// the depth is one chunk and the parameters are staged, else `general`.
-// hist_bytes: 1 (uint8 words) or 4 (float32 bitplanes); planes: 1 or depth;
-// params: parameter floats per side, staged in shared memory up to
-// MAX_PARAMS (past it plan.params is 0 and the kernel reads them in place).
-// Returns the cudaError_t (0 = success); K or C of 0 launches nothing.  The
-// staged tile shrinks (rows per pass, then row lanes, then planes per depth
-// chunk) until it fits, and the smallest always does, so only a wrong
-// operand (a negative size, no history plane, a history element of another
-// width) is refused, with cudaErrorInvalidValue.
-template <class... KArgs, class... Args>
-int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int C,
-           int hist_bytes, int planes, int params, int device, void* stream, Args... args) {
+// Plans a launch of kernel(args..., plan): `fast` (GENERAL = false) when the
+// output tiles span all of K and C, the depth is one chunk and the
+// parameters are staged, else `general`, into *kernel.  hist_bytes: 1 (uint8
+// words) or 4 (float32 bitplanes); planes: 1 or depth; params: parameter
+// floats per side, staged in shared memory up to MAX_PARAMS (past it
+// plan.params is 0 and the kernel reads them in place).  Returns the
+// cudaError_t (0 = success).  The staged tile shrinks (rows per pass, then
+// row lanes, then planes per depth chunk) until it fits, and the smallest
+// always does, so only a wrong operand (a negative size, no history plane, a
+// history element of another width) is refused, with cudaErrorInvalidValue.
+// K or C of 0 plans no launch (*kernel null, direct: no scratch).  The plan
+// depends only on its arguments and the card.
+template <class Kernel>
+int plan(Kernel fast, Kernel general, int M, int K, int C, int hist_bytes, int planes,
+         int params, int device, Plan* out, Kernel* kernel_out) {
   if (M < 0 || K < 0 || C < 0 || planes < 1 || params < 0 ||
       (hist_bytes != 1 && hist_bytes != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Plan p{};
+  p.splits = 1;
+  p.direct = 1;
+  *out = p;
+  *kernel_out = nullptr;
   if (K == 0 || C == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Plan p{};
   p.M = M;
   p.K = K;
   p.C = C;
@@ -589,7 +643,7 @@ int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int 
   }
   p.chunks = ceil_div(p.depth, p.planes);
   const bool one_pass = p.tiles_k == 1 && p.tiles_c == 1 && p.chunks == 1 && p.params == params;
-  void (*kernel)(KArgs...) = one_pass ? fast : general;
+  const Kernel kernel = one_pass ? fast : general;
   int resident = 0;
   err = co_resident(kernel, device, p.smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -616,6 +670,46 @@ int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int 
     p.tm = p.lanes * RPT * p.groups;
     layout(p, hist_bytes);   // no larger than the planned tile, so it fits
   }
+  p.direct = !one_pass && p.splits == 1;
+  *out = p;
+  *kernel_out = kernel;
+  return 0;
+}
+
+// The float64 scratch a plan reads and writes: splits x K x C, or none
+// where it stores directly.
+inline long scratch_doubles(const Plan& p) {
+  return p.direct ? 0 : static_cast<long>(p.splits) * p.K * p.C;
+}
+
+// The scratch a launch of this shape takes, into *doubles (plan's
+// scratch_doubles).  Returns the cudaError_t (0 = success).
+template <class Kernel>
+int plan_scratch(Kernel fast, Kernel general, int M, int K, int C, int hist_bytes, int planes,
+                 int params, int device, long* doubles) {
+  Plan p{};
+  Kernel kernel = nullptr;
+  const int err = plan(fast, general, M, K, C, hist_bytes, planes, params, device, &p, &kernel);
+  *doubles = scratch_doubles(p);
+  return err;
+}
+
+// Plans (as above) and launches kernel(args..., plan) on `stream` as one
+// cooperative grid, given `scratch` doubles at the kernel's partial operand:
+// a plan that takes more (a query made for another shape or card) is
+// refused with cudaErrorInvalidValue.  *direct (if not null): 1 where the
+// launch stored its outputs directly, else 0.  Returns the cudaError_t (0 =
+// success); K or C of 0 launches nothing.
+template <class... KArgs, class... Args>
+int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int C,
+           int hist_bytes, int planes, int params, int device, void* stream, long scratch,
+           int* direct, Args... args) {
+  Plan p{};
+  void (*kernel)(KArgs...) = nullptr;
+  if (direct != nullptr) *direct = 0;
+  const int err = plan(fast, general, M, K, C, hist_bytes, planes, params, device, &p, &kernel);
+  if (err != 0 || kernel == nullptr) return err;
+  if (scratch_doubles(p) > scratch) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -627,8 +721,9 @@ int launch(void (*fast)(KArgs...), void (*general)(KArgs...), int M, int K, int 
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args..., p);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args..., p);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  if (direct != nullptr) *direct = p.direct;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -202,23 +202,46 @@ int launch_update(float* w_out, const float* w, const float* pre_spike,
 }
 
 template <int W>
-int launch_conv(float* out, double* partial, const float* pre, const float* post,
+int launch_conv(float* out, double* partial, long scratch, const float* pre, const float* post,
                 const uint8_t* pre_words, const uint8_t* post_words, const float* lut,
                 int M, int K, int C, int depth, Side ltp, Side ltd, int device,
                 void* stream) {
   return gated::launch(counter_conv_delta_kernel<W, false>, counter_conv_delta_kernel<W, true>,
-                       M, K, C, 1, 1, W == IMSTDP ? depth : 0,
-                       device, stream, out, partial, pre, post, pre_words, post_words, lut,
-                       ltp, ltd, depth);
+                       M, K, C, 1, 1, W == IMSTDP ? depth : 0, device, stream, scratch,
+                       nullptr, out, partial, pre, post, pre_words, post_words, lut, ltp,
+                       ltd, depth);
+}
+
+template <int W>
+int conv_scratch(int M, int K, int C, int depth, int device, long* doubles) {
+  return gated::plan_scratch(counter_conv_delta_kernel<W, false>,
+                             counter_conv_delta_kernel<W, true>, M, K, C, 1, 1,
+                             W == IMSTDP ? depth : 0, device, doubles);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wrapper allocates partial as K * C * counter_conv_max_splits(M, K, C)
-// float64 values (per call; no zeroing).
-int counter_conv_max_splits(int M, int K, int C) { return gated::max_splits(M, K, C); }
+// The float64 scratch the conv delta's launch of this shape takes, into
+// *doubles (window and depth as below): the wrapper allocates partial as
+// that many values (per call; no zeroing), or passes null at 0, where the
+// blocks store the outputs directly.  Returns the cudaError_t (0 = success).
+int counter_conv_scratch(int M, int K, int C, int depth, int window, int device,
+                         long* doubles) {
+  *doubles = 0;
+  if (depth < 1 || depth > MAX_DEPTH || window < EXACT || window > IMSTDP) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (window) {
+    case EXACT:
+      return conv_scratch<EXACT>(M, K, C, depth, device, doubles);
+    case LINEAR:
+      return conv_scratch<LINEAR>(M, K, C, depth, device, doubles);
+    default:
+      return conv_scratch<IMSTDP>(M, K, C, depth, device, doubles);
+  }
+}
 
 // w, w_out: (lanes, n_pre, n_post) f32; spikes: (lanes, n) f32 {0,1}; counter
 // words: (lanes, n) uint8; lut: (2, depth) f32 (rows LTP, LTD; read by
@@ -252,9 +275,9 @@ int counter_stdp_update(float* w_out, const float* w, const float* pre_spike,
 }
 
 // pre: (M, K) f32, post: (M, C) f32, words: (M, K) / (M, C) uint8; lut and
-// window as above; out: (K, C) f32; partial: f64 scratch, sized as above.
-// Returns the cudaError_t of the launch (0 = success).
-int counter_conv_delta(float* out, double* partial, const float* pre,
+// window as above; out: (K, C) f32; partial: `scratch` f64 values, sized
+// as above.  Returns the cudaError_t of the launch (0 = success).
+int counter_conv_delta(float* out, double* partial, long scratch, const float* pre,
                        const float* post, const uint8_t* pre_words,
                        const uint8_t* post_words, const float* lut, int M, int K,
                        int C, int depth, int window, float a_plus, float a_minus,
@@ -265,13 +288,13 @@ int counter_conv_delta(float* out, double* partial, const float* pre,
   const Side ltp = side(a_plus, tau_plus), ltd = side(a_minus, tau_minus);
   switch (window) {
     case EXACT:
-      return launch_conv<EXACT>(out, partial, pre, post, pre_words, post_words, lut,
+      return launch_conv<EXACT>(out, partial, scratch, pre, post, pre_words, post_words, lut,
                                 M, K, C, depth, ltp, ltd, device, stream);
     case LINEAR:
-      return launch_conv<LINEAR>(out, partial, pre, post, pre_words, post_words, lut,
+      return launch_conv<LINEAR>(out, partial, scratch, pre, post, pre_words, post_words, lut,
                                  M, K, C, depth, ltp, ltd, device, stream);
     default:
-      return launch_conv<IMSTDP>(out, partial, pre, post, pre_words, post_words, lut,
+      return launch_conv<IMSTDP>(out, partial, scratch, pre, post, pre_words, post_words, lut,
                                  M, K, C, depth, ltp, ltd, device, stream);
   }
 }

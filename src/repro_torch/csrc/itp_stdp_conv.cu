@@ -36,6 +36,14 @@
 // is summed over the blocks in a fixed order.  No atomics; ragged M, K and C
 // are masked in-kernel and the wrapper pads nothing.
 //
+// The SNN fc layers' batch-summed delta is the same contraction with the
+// batch as the M rows (one row per sample, K inputs, C neurons).  At the
+// paper's widest fc layer (256 x 784 x 6,400) there are more output tiles
+// than co-resident blocks, so M is not split and each block stores its
+// tiles' outputs directly (gated_sum.cuh, "Direct store"): the 2.57 G double
+// FMAs of the two contractions, ~0.15 ms at the card's float64 rate, bound
+// that call.
+//
 // Arithmetic: no tensor cores (TF32 would drop the po2 sums' low bits).  The
 // magnitudes are float32, written with __fmul_rn/__fadd_rn so nvcc does not
 // contract them into FMAs.  The po2 terms span a few binades, so the float64
@@ -140,44 +148,55 @@ itp_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
 }
 
 template <bool PACKED>
-int launch(float* out, double* partial, const float* pre, const float* post,
+int launch(float* out, double* partial, long scratch, const float* pre, const float* post,
            const void* pre_hist, const void* post_hist, const float* po2_ltp,
            const float* po2_ltd, int M, int K, int C, int depth, int nearest,
-           int device, void* stream) {
+           int device, void* stream, int* direct) {
   return gated::launch(itp_conv_delta_kernel<PACKED, false>, itp_conv_delta_kernel<PACKED, true>,
-                       M, K, C, PACKED ? 1 : 4,
-                       PACKED ? 1 : depth, depth, device, stream, out, partial, pre, post,
-                       pre_hist, post_hist, po2_ltp, po2_ltd, depth, nearest);
+                       M, K, C, PACKED ? 1 : 4, PACKED ? 1 : depth, depth, device, stream,
+                       scratch, direct, out, partial, pre, post, pre_hist, post_hist, po2_ltp,
+                       po2_ltd, depth, nearest);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wrapper allocates partial as K * C * itp_stdp_conv_max_splits(M, K, C)
-// float64 values (per call; no zeroing).
-int itp_stdp_conv_max_splits(int M, int K, int C) { return gated::max_splits(M, K, C); }
+// The float64 scratch the launch of this shape takes, into *doubles: the
+// wrapper allocates partial as that many values (per call; no zeroing), or
+// passes null at 0, where the blocks store the outputs directly and partial
+// is not read.  Returns the cudaError_t (0 = success).
+int itp_stdp_conv_scratch(int M, int K, int C, int depth, int packed, int device,
+                          long* doubles) {
+  return packed ? gated::plan_scratch(itp_conv_delta_kernel<true, false>,
+                                      itp_conv_delta_kernel<true, true>, M, K, C, 1, 1, depth,
+                                      device, doubles)
+                : gated::plan_scratch(itp_conv_delta_kernel<false, false>,
+                                      itp_conv_delta_kernel<false, true>, M, K, C, 4, depth,
+                                      depth, device, doubles);
+}
 
 // pre: (M, K) f32, post: (M, C) f32, words: (M, K) / (M, C) uint8 with
-// register slot k at bit 7-k; po2: (depth,) f32; out: (K, C) f32.
-// Returns the cudaError_t of the launch (0 = success).
-int itp_stdp_conv_delta_packed(float* out, double* partial, const float* pre,
+// register slot k at bit 7-k; po2: (depth,) f32; out: (K, C) f32; partial:
+// `scratch` f64 values, sized as above; *direct: whether the launch stored
+// the outputs directly.  Returns the cudaError_t of the launch (0 = success).
+int itp_stdp_conv_delta_packed(float* out, double* partial, long scratch, const float* pre,
                                const float* post, const uint8_t* pre_words,
                                const uint8_t* post_words, const float* po2_ltp,
                                const float* po2_ltd, int M, int K, int C, int depth,
-                               int nearest, int device, void* stream) {
-  return launch<true>(out, partial, pre, post, pre_words, post_words, po2_ltp,
-                      po2_ltd, M, K, C, depth, nearest, device, stream);
+                               int nearest, int device, void* stream, int* direct) {
+  return launch<true>(out, partial, scratch, pre, post, pre_words, post_words, po2_ltp,
+                      po2_ltd, M, K, C, depth, nearest, device, stream, direct);
 }
 
 // As above, with (depth, M, K) / (depth, M, C) f32 bitplanes, k = 0 newest.
-int itp_stdp_conv_delta(float* out, double* partial, const float* pre,
+int itp_stdp_conv_delta(float* out, double* partial, long scratch, const float* pre,
                         const float* post, const float* pre_bits,
                         const float* post_bits, const float* po2_ltp,
                         const float* po2_ltd, int M, int K, int C, int depth,
-                        int nearest, int device, void* stream) {
-  return launch<false>(out, partial, pre, post, pre_bits, post_bits, po2_ltp,
-                       po2_ltd, M, K, C, depth, nearest, device, stream);
+                        int nearest, int device, void* stream, int* direct) {
+  return launch<false>(out, partial, scratch, pre, post, pre_bits, post_bits, po2_ltp,
+                       po2_ltd, M, K, C, depth, nearest, device, stream, direct);
 }
 
 const char* itp_stdp_conv_error_string(int code) {

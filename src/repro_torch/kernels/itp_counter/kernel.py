@@ -13,7 +13,9 @@ stream or raises — there is no fallback.  Each wrapper counts its calls
 that launch the kernel in a plain integer attribute,
 ``<wrapper>.launches``, which callers may reset to 0; only the operator's
 CUDA kernel adds to it.  The conv delta's float64 partials are the CUDA
-kernel's own scratch, allocated inside it.
+kernel's own scratch, allocated inside it as large as the kernel's plan
+reports (``counter_conv_scratch``; none where the blocks store the outputs
+directly).
 
 Shapes: the dense update takes optional leading lane axes, one independent
 engine per lane, all in one launch: ``w`` ``(*lanes, n_pre, n_post)``
@@ -38,8 +40,8 @@ MAX_DEPTH = 255
 
 _UPDATE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 7
                     + [ctypes.c_int, ctypes.c_void_p])
-_CONV_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
-                  + [ctypes.c_int, ctypes.c_void_p])
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_long] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def counter_delays(words: torch.Tensor, depth: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,8 +61,8 @@ def _lib() -> ctypes.CDLL:
     lib.counter_stdp_update.restype = ctypes.c_int
     lib.counter_conv_delta.argtypes = _CONV_ARGTYPES
     lib.counter_conv_delta.restype = ctypes.c_int
-    lib.counter_conv_max_splits.argtypes = [ctypes.c_int] * 3
-    lib.counter_conv_max_splits.restype = ctypes.c_int
+    lib.counter_conv_scratch.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_long)]
+    lib.counter_conv_scratch.restype = ctypes.c_int
     lib.counter_error_string.argtypes = [ctypes.c_int]
     lib.counter_error_string.restype = ctypes.c_char_p
     return lib
@@ -177,15 +179,19 @@ def _cuda_conv(pre_patches, post_spikes, pre_words, post_words, lut, *, depth, w
     pre_words, post_words = pre_words.contiguous(), post_words.contiguous()
     lut = lut.contiguous()
     lib = _lib()
+    index = _device_index(dev)
+    doubles = ctypes.c_long(0)
+    _raise_on(lib, symbol, lib.counter_conv_scratch(m, k, c, depth, WINDOW_CODES[window],
+                                                    index, ctypes.byref(doubles)))
     out = torch.empty((k, c), dtype=torch.float32, device=dev)
     # the blocks' float64 partials: every slot the launch reads it first writes
-    partial = torch.empty((lib.counter_conv_max_splits(m, k, c) * k * c,),
-                          dtype=torch.float64, device=dev)
+    partial = (torch.empty((doubles.value,), dtype=torch.float64, device=dev)
+               if doubles.value else None)
     rc = lib.counter_conv_delta(
-        out.data_ptr(), partial.data_ptr(), pre.data_ptr(), post.data_ptr(),
-        pre_words.data_ptr(), post_words.data_ptr(), lut.data_ptr(), m, k, c, depth,
-        WINDOW_CODES[window], a_plus, a_minus, tau_plus, tau_minus, _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if partial is None else partial.data_ptr(), doubles.value,
+        pre.data_ptr(), post.data_ptr(), pre_words.data_ptr(), post_words.data_ptr(),
+        lut.data_ptr(), m, k, c, depth, WINDOW_CODES[window], a_plus, a_minus, tau_plus,
+        tau_minus, index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, symbol, rc)
     counter_conv_delta.launches += 1
     return out

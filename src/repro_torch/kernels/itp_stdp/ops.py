@@ -134,7 +134,10 @@ def synapse_delta(pre_spike: torch.Tensor, post_spike: torch.Tensor,
                   interpret: bool = False,
                   po2: Po2Pair | None = None) -> torch.Tensor:
     """Raw Δw ``(*lanes, n_pre, n_post)`` from registers: zero ``w``,
-    ``eta=1`` and an unbounded clip through the same kernel."""
+    ``eta=1`` and an unbounded clip through the same kernel.  No program
+    path calls it or :func:`synapse_delta_packed` (the SNN fc layers sum
+    the batch in the conv kernel, ``itp_stdp_conv``): they are the per-lane
+    reference the tests hold that sum against."""
     zero_w = pre_bits.new_zeros((*pre_bits.shape[:-2], pre_bits.shape[-1],
                                  post_bits.shape[-1]), dtype=torch.float32)
     return weight_update_depth_major(

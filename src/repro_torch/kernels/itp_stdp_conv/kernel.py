@@ -16,7 +16,12 @@ stream or raises — there is no fallback.  Each wrapper counts its calls
 that launch the kernel in a plain integer attribute,
 ``<wrapper>.launches``, which callers may reset to 0; only the operator's
 CUDA kernel adds to it.  The blocks' float64 partials are the CUDA
-kernel's own scratch, allocated inside it.
+kernel's own scratch, allocated inside it as large as the kernel's plan
+reports (``itp_stdp_conv_scratch``).  A plan that does not split the M rows
+(more output tiles than blocks on the card: the SNN fc layers' batch sum at
+784 × 6,400) stores the outputs from the blocks directly and takes no
+scratch; ``<wrapper>.direct_launches`` counts the launches that report it,
+beside ``.launches``.
 
 Shapes: pre patches ``(M, K)``, post spikes ``(M, C)`` (any dtype, read as
 float32), words ``(M, K)`` / ``(M, C)`` uint8 or bitplanes ``(depth, M, K)``
@@ -33,7 +38,8 @@ from repro_torch.kernels import _build, _ops
 from repro_torch.kernels.itp_stdp_conv.ref import (itp_stdp_conv_delta_packed_ref,
                                                    itp_stdp_conv_delta_ref)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_long] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,8 +48,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    lib.itp_stdp_conv_max_splits.argtypes = [ctypes.c_int] * 3
-    lib.itp_stdp_conv_max_splits.restype = ctypes.c_int
+    lib.itp_stdp_conv_scratch.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_long)]
+    lib.itp_stdp_conv_scratch.restype = ctypes.c_int
     lib.itp_stdp_conv_error_string.argtypes = [ctypes.c_int]
     lib.itp_stdp_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,10 +83,18 @@ def _check(symbol: str, pre: torch.Tensor, post: torch.Tensor, pre_hist: torch.T
         raise TypeError(f"{symbol}: po2 vectors must be float32")
 
 
+def _raise_on(lib: ctypes.CDLL, symbol: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA launch failed: "
+                           f"{lib.itp_stdp_conv_error_string(rc).decode()}")
+
+
 def _launch(symbol: str, pre: torch.Tensor, post: torch.Tensor,
             pre_hist: torch.Tensor, post_hist: torch.Tensor, po2_ltp: torch.Tensor,
             po2_ltd: torch.Tensor, *, depth: int, hist_dtype: torch.dtype,
-            nearest: bool) -> torch.Tensor:
+            nearest: bool) -> tuple[torch.Tensor, bool]:
+    """Launch ``symbol``; → the ``(K, C)`` delta and whether the launch
+    stored it directly (no scratch)."""
     dev = pre.device
     if dev.type != "cuda":
         raise ValueError(f"{symbol}: tensors must be on a CUDA device or the CPU, got {dev}")
@@ -97,20 +111,23 @@ def _launch(symbol: str, pre: torch.Tensor, post: torch.Tensor,
     pre_hist, post_hist = pre_hist.contiguous(), post_hist.contiguous()
     po2_ltp, po2_ltd = po2_ltp.contiguous(), po2_ltd.contiguous()
     lib = _lib()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    doubles = ctypes.c_long(0)
+    _raise_on(lib, symbol, lib.itp_stdp_conv_scratch(m, k, c, depth,
+                                                     int(hist_dtype == torch.uint8), index,
+                                                     ctypes.byref(doubles)))
     out = torch.empty((k, c), dtype=torch.float32, device=dev)
     # the blocks' float64 partials: every slot the launch reads it first writes
-    partial = torch.empty((lib.itp_stdp_conv_max_splits(m, k, c) * k * c,),
-                          dtype=torch.float64, device=dev)
+    partial = (torch.empty((doubles.value,), dtype=torch.float64, device=dev)
+               if doubles.value else None)
+    direct = ctypes.c_int(0)
     rc = getattr(lib, symbol)(
-        out.data_ptr(), partial.data_ptr(), pre.data_ptr(), post.data_ptr(),
-        pre_hist.data_ptr(), post_hist.data_ptr(), po2_ltp.data_ptr(),
-        po2_ltd.data_ptr(), m, k, c, depth, int(nearest),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol}: CUDA launch failed: "
-                           f"{lib.itp_stdp_conv_error_string(rc).decode()}")
-    return out
+        out.data_ptr(), None if partial is None else partial.data_ptr(), doubles.value,
+        pre.data_ptr(), post.data_ptr(), pre_hist.data_ptr(), post_hist.data_ptr(),
+        po2_ltp.data_ptr(), po2_ltd.data_ptr(), m, k, c, depth, int(nearest), index,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(direct))
+    _raise_on(lib, symbol, rc)
+    return out, bool(direct.value)
 
 
 _SCHEMA = ("(Tensor pre_patches, Tensor post_spikes, Tensor pre_hist, Tensor post_hist, "
@@ -119,20 +136,22 @@ _SCHEMA = ("(Tensor pre_patches, Tensor post_spikes, Tensor pre_hist, Tensor pos
 
 def _cuda_packed(pre_patches, post_spikes, pre_words, post_words, po2_ltp, po2_ltd, *,
                  depth, nearest):
-    out = _launch("itp_stdp_conv_delta_packed", pre_patches, post_spikes, pre_words,
-                  post_words, po2_ltp, po2_ltd, depth=depth, hist_dtype=torch.uint8,
-                  nearest=nearest)
+    out, direct = _launch("itp_stdp_conv_delta_packed", pre_patches, post_spikes, pre_words,
+                          post_words, po2_ltp, po2_ltd, depth=depth, hist_dtype=torch.uint8,
+                          nearest=nearest)
     itp_stdp_conv_delta_packed.launches += 1
+    itp_stdp_conv_delta_packed.direct_launches += direct
     return out
 
 
 def _cuda_planes(pre_patches, post_spikes, pre_bits, post_bits, po2_ltp, po2_ltd, *,
                  nearest):
-    out = _launch("itp_stdp_conv_delta", pre_patches, post_spikes,
-                  pre_bits.to(torch.float32), post_bits.to(torch.float32), po2_ltp,
-                  po2_ltd, depth=pre_bits.shape[0], hist_dtype=torch.float32,
-                  nearest=nearest)
+    out, direct = _launch("itp_stdp_conv_delta", pre_patches, post_spikes,
+                          pre_bits.to(torch.float32), post_bits.to(torch.float32), po2_ltp,
+                          po2_ltd, depth=pre_bits.shape[0], hist_dtype=torch.float32,
+                          nearest=nearest)
     itp_stdp_conv_delta.launches += 1
+    itp_stdp_conv_delta.direct_launches += direct
     return out
 
 
@@ -195,3 +214,5 @@ def itp_stdp_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
 
 itp_stdp_conv_delta_packed.launches = 0
 itp_stdp_conv_delta.launches = 0
+itp_stdp_conv_delta_packed.direct_launches = 0
+itp_stdp_conv_delta.direct_launches = 0

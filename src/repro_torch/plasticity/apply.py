@@ -36,7 +36,7 @@ from repro_torch.kernels.dispatch import (im2col_1d, im2col_2d, im2col_words_1d,
 from repro_torch.kernels.itp_sparse.events import spike_events
 from repro_torch.kernels.itp_stdp.ops import po2_vectors
 from repro_torch.kernels.itp_stdp_conv.ref import gated_contraction
-from repro_torch.plasticity.base import LearningRule, resolve_rule_backend
+from repro_torch.plasticity.base import LearningRule, lane_sum, resolve_rule_backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,16 +160,18 @@ class UpdatePlan:
         """Batch-summed raw ``(fan_in, n_out)`` Δw of an fc layer.
 
         The fc layer is the engine's dense synapse matrix replicated over the
-        batch.  The kernel backends make one kernel-1 launch with the batch
-        as the lane axis, and the sparse backend one batched scatter, and sum
-        the ``(B, fan_in, n_out)`` per-sample deltas (the reference vmaps and
-        sums); the reference backend contracts the pair-gated magnitudes over
-        the batch (the P = 1 case of the conv patch formula).  Every
-        per-sample term is an exact float32 value, so all sum in float64,
-        exactly, and round once: the backends give the same bits, as the conv
-        kernel and its plain version do.  The kernel view's shape picks the
-        layout: ``(B·n,)`` words (packed history words, counter words at any
-        depth) or ``(rows, B·n)`` rows.
+        batch.  The reference backend contracts the pair-gated magnitudes over
+        the batch (the P = 1 case of the conv patch formula); the kernel
+        backends hand the rule's :meth:`~repro_torch.plasticity.base.
+        LearningRule.batch_delta` the batch as lanes, which for a rule with
+        per-neuron magnitudes is that contraction in one conv-kernel launch
+        (the counter rules keep kernel 5's per-lane array and sum it); the
+        sparse backend makes one batched scatter and sums the ``(B, fan_in,
+        n_out)`` per-sample deltas.  Every per-sample term is an exact float32
+        value, so all sum in float64, exactly, and round once: the backends
+        give the same bits.  The kernel view's shape picks the layout:
+        ``(B·n,)`` words (packed history words, counter words at any depth)
+        or ``(rows, B·n)`` rows.
         """
         B = s_in.shape[0]
         pre = s_in.reshape(B, -1)                        # (B, fan_in)
@@ -185,17 +187,17 @@ class UpdatePlan:
         words = pre_read.dim() == 1
         if words:          # (B·n,) words → (B, n) lanes
             pre_read, post_read = pre_read.reshape(B, -1), post_read.reshape(B, -1)
-        else:              # (rows, B·n) → (B, rows, n) lanes
-            pre_read = pre_read.reshape(pre_read.shape[0], B, -1).transpose(0, 1)
-            post_read = post_read.reshape(post_read.shape[0], B, -1).transpose(0, 1)
+        else:              # (rows, B·n) → (rows, B, n)
+            pre_read = pre_read.reshape(pre_read.shape[0], B, -1)
+            post_read = post_read.reshape(post_read.shape[0], B, -1)
         kw.update(packed=words, po2=self.po2, table=self.table)
-        if self.sparse:
-            dw = rule.sparse_delta(pre, post, pre_read, post_read, p,
-                                   max_events=self.max_events, **kw)
-        else:
-            dw = rule.fused_delta(pre, post, pre_read, post_read, p,
-                                  interpret=self.interpret, **kw)
-        return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+        if self.sparse:    # lanes first: (B, rows, n)
+            if not words:
+                pre_read, post_read = pre_read.transpose(0, 1), post_read.transpose(0, 1)
+            return lane_sum(rule.sparse_delta(pre, post, pre_read, post_read, p,
+                                              max_events=self.max_events, **kw))
+        return rule.batch_delta(pre, post, pre_read, post_read, p, interpret=self.interpret,
+                                **kw)
 
     def conv_delta(self, pre_state: Any, post_state: Any, patches: torch.Tensor,
                    s_out: torch.Tensor, *, in_shape: tuple, kind: str, kernel: int,

@@ -5,7 +5,7 @@ views and its magnitude read; everything backend-shaped — which datapath
 runs, packed or unpacked operands — lives in :mod:`repro_torch.plasticity.
 apply`.  The hooks between the plan and the kernels carry names of their
 own in the port (``kernel_view``, ``fused_update``, ``fused_delta``,
-``patch_delta``, ``sparse_update``, ``sparse_delta``,
+``patch_delta``, ``batch_delta``, ``sparse_update``, ``sparse_delta``,
 ``sparse_patch_delta``, ``to_words``, ``from_words_state``,
 ``read_magnitudes``): the reference's names are reserved by its lint rule
 R8 to ``repro/plasticity/``.
@@ -127,7 +127,9 @@ class LearningRule(abc.ABC):
                     interpret: bool, po2: tuple[torch.Tensor, torch.Tensor],
                     table: torch.Tensor | None = None) -> torch.Tensor:
         """Raw ``(*lanes, n_pre, n_post)`` Δw from :meth:`kernel_view` views,
-        every lane in one kernel launch (the SNN fc layers' per-sample delta)."""
+        every lane in one kernel launch: the counter rules' fc layers sum it
+        over the batch (:meth:`batch_delta`); for the other rules it is the
+        per-sample reference the tests hold :meth:`batch_delta` against."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
 
     def patch_delta(self, pre_patches: torch.Tensor, post_spikes: torch.Tensor,
@@ -140,6 +142,25 @@ class LearningRule(abc.ABC):
         the timing views gathered into the same layout: ``(M, ·)`` uint8 words
         (``packed``) or ``(rows, M, ·)`` float32 rows."""
         raise NotImplementedError(f"rule {self.name!r} has no conv datapath")
+
+    def batch_delta(self, pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                    pre_read: torch.Tensor, post_read: torch.Tensor, p: STDPParams,
+                    *, packed: bool, depth: int, pairing: str, compensate: bool,
+                    interpret: bool, po2: tuple[torch.Tensor, torch.Tensor],
+                    table: torch.Tensor | None = None) -> torch.Tensor:
+        """Batch-summed raw ``(n_pre, n_post)`` Δw of an SNN fc layer on the
+        kernel backends, from ``(B, n_pre)`` / ``(B, n_post)`` spikes and
+        :meth:`kernel_view` views with the batch as their lane axis:
+        ``(B, n)`` uint8 words (``packed``) or ``(rows, B, n)`` rows.
+
+        A rule that reads one magnitude per neuron makes its fc delta the
+        P = 1 case of its conv patch formula, the batch as the M rows: one
+        gated-contraction launch (:meth:`patch_delta`) sums the batch exactly
+        in float64 inside the kernel, with no per-sample array."""
+        return self.patch_delta(pre_spike, post_spike, pre_read, post_read, p,
+                                packed=packed, depth=depth, pairing=pairing,
+                                compensate=compensate, use_kernel=True,
+                                interpret=interpret, po2=po2, table=table)
 
     # -- event-driven (sparse) datapath ---------------------------------
     # The readout views are :meth:`kernel_view`'s (packed words or rows), so
@@ -190,6 +211,13 @@ class LearningRule(abc.ABC):
         return ltp_en * ltp[..., :, None] - ltd_en * ltd[..., None, :]
 
 
+def lane_sum(dw: torch.Tensor) -> torch.Tensor:
+    """``(B, n_pre, n_post)`` per-sample deltas summed over the batch lanes:
+    every term is an exact float32 value, so the float64 sum is exact and
+    rounds once, and any order gives the bits of the gated contraction."""
+    return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Generic rank-1 backend adapters
 # ---------------------------------------------------------------------------
@@ -213,7 +241,7 @@ class Rank1Rule(LearningRule):
     depth-1 float32 "bitplane" (``ltp[..., None, :]``) with the unit po2
     read vector ``[1.0]`` (:meth:`read_table`, built once per plan), so the
     kernels' read ``1.0 · m`` is ``m`` exactly: kernel 2 for the engine
-    update and the fc delta, kernel 4 for the conv delta, the
+    update, kernel 4 for the conv delta and the fc delta's batch sum, the
     ``itp_sparse`` ops for the sparse backend.  Pairing is forced to
     ``"all"`` there (the nearest mask counts set bits, which a magnitude is
     not) and compensation off; the rule's own ``read_magnitudes`` owns
@@ -269,6 +297,9 @@ class Rank1Rule(LearningRule):
 
     def fused_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
                     *, packed, depth, pairing, compensate, interpret, po2, table=None):
+        """Per-lane Δw on kernel 2 over the magnitude planes: no program
+        path calls it (the fc layers' batch sum is :meth:`patch_delta`'s
+        kernel 4); the tests' per-sample reference."""
         del packed, po2
         ltp, ltd = self._magnitude_pair(pre_read, post_read, p, depth=depth,
                                         pairing=pairing, compensate=compensate)

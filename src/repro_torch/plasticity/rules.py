@@ -4,15 +4,19 @@
 state is the bitplane spike history; the timing difference is never
 computed: the register read is the update (eq. 2 / Fig. 3).  ``itp`` is
 compensated by default (eq. 18), ``itp_nocomp`` reads the raw po2 weights.
-Its hooks reach the dense kernels (``itp_stdp``: the engine update and the
-SNN fc layers' per-sample delta), the conv kernel (``itp_stdp_conv``) and
-the event-driven ops (``itp_sparse``).
+Its hooks reach the dense kernels (``itp_stdp``: the engine update), the
+conv kernel (``itp_stdp_conv``: the conv layers and the SNN fc layers'
+batch-summed delta) and the event-driven ops (``itp_sparse``); its
+per-lane ``fused_delta`` (kernel 1) is on no program path, and stays as the
+per-sample reference the tests hold the fc layers' contraction against.
 
 ``CounterRule`` — ``exact``, ``linear`` and ``imstdp``, the paper's
 explicit-Δt baselines: state is one saturating last-spike counter per
 neuron, and the window (``kernels/itp_counter/ref.py``) is evaluated on the
-per-pair Δt.  Its hooks reach the ``itp_counter`` kernels; it has no
-event-driven datapath, so ``sparse`` refuses it at config construction.
+per-pair Δt.  Its hooks reach the ``itp_counter`` kernels (its fc layers
+the per-lane kernel 5 and a batch sum, not the contraction the history
+rules' fc layers take); it has no event-driven datapath, so ``sparse``
+refuses it at config construction.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.kernels.itp_stdp.ops import (synapse_delta, synapse_delta_packe
                                               weight_update_packed)
 from repro_torch.kernels.itp_stdp_conv.ops import (conv_synapse_delta,
                                                    conv_synapse_delta_packed)
-from repro_torch.plasticity.base import LearningRule, register_rule
+from repro_torch.plasticity.base import LearningRule, lane_sum, register_rule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +102,9 @@ class HistoryRule(LearningRule):
 
     def fused_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
                     *, packed, depth, pairing, compensate, interpret, po2, table=None):
+        """Per-lane Δw on kernel 1: no program path calls it (the fc layers
+        sum the batch in :meth:`patch_delta`'s kernel); the tests hold that
+        contraction to this array's float64 batch sum, bit for bit."""
         del table
         kw = dict(pairing=pairing, compensate=compensate, interpret=interpret, po2=po2)
         if packed:
@@ -253,6 +260,18 @@ class CounterRule(LearningRule):
         return counter_synapse_delta(pre_spike, post_spike, pre_read, post_read, p,
                                      depth=depth, window=self.window,
                                      interpret=interpret, lut=table)
+
+    def batch_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
+                    *, packed, depth, pairing, compensate, interpret, po2, table=None):
+        """The fc delta per lane (kernel 5), then the exact batch sum: kernel
+        5 evaluates the window per synapse pair, the paper's baseline
+        datapath that ITP's register read is compared with, so the counter
+        rules' fc layers keep the per-sample array rather than contract
+        per-neuron magnitudes."""
+        return lane_sum(self.fused_delta(pre_spike, post_spike, pre_read, post_read, p,
+                                         packed=packed, depth=depth, pairing=pairing,
+                                         compensate=compensate, interpret=interpret,
+                                         po2=po2, table=table))
 
     def patch_delta(self, pre_patches, post_spikes, pre_read, post_read, p: STDPParams,
                     *, packed, depth, pairing, compensate, use_kernel, interpret, po2,

@@ -4,8 +4,9 @@ im2col layouts (float patches and uint8 words, 2-D and 1-D) exactly; the raw
 mode, at ragged M, K and C, depth 1..8 and both pairings, within atol=1e-4,
 rtol=1e-5 (float32 accumulation order over the M rows, the reference's own
 kernel-vs-oracle tolerance); packed ≡ unpacked in the port; one patch row
-equal to the dense kernel-1 delta; and the plan's conv and fc deltas against
-the reference's on every backend."""
+equal to the dense kernel-1 delta; the plan's conv and fc deltas against
+the reference's on every backend; and the plan's fc delta against the
+per-lane path summed over the batch, with the rule hook each rule reaches."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,3 +200,84 @@ def test_plan_fc_delta_matches_reference(cell):
     td = TA.make_plan(tcfg, "cpu").fc_delta(tpre, tpost, torch.from_numpy(s_in),
                                             torch.from_numpy(s_out))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-6)
+
+
+# (rule, backend, config fields, the rule hook the plan's fc delta reaches,
+# bit for bit with the per-lane path): the history rules and mstdp contract
+# the batch in the conv kernel (patch_delta), the counter rules keep kernel
+# 5's per-lane array (fused_delta) and its exact batch sum
+FC_ROUTES = [
+    ("itp", "fused", {}, "patch_delta", True),
+    ("itp", "fused_interpret", {}, "patch_delta", True),
+    ("itp_nocomp", "fused", {}, "patch_delta", True),
+    ("itp_nocomp", "fused_interpret", {}, "patch_delta", True),
+    ("itp", "fused", {"packed_history": False}, "patch_delta", True),
+    ("itp", "fused", {"depth": 12}, "patch_delta", True),
+    ("itp_nocomp", "fused_interpret", {"depth": 12, "pairing": "all"}, "patch_delta", True),
+    ("mstdp", "fused", {}, "patch_delta", False),
+    ("mstdp", "fused_interpret", {}, "patch_delta", False),
+    ("exact", "fused", {}, "fused_delta", True),
+    ("exact", "fused_interpret", {}, "fused_delta", True),
+]
+
+
+@pytest.mark.parametrize("route", FC_ROUTES,
+                         ids=lambda r: f"{r[0]}-{r[1]}-{'-'.join(map(str, r[2].values()))}")
+def test_plan_fc_delta_sums_the_per_lane_deltas(route, monkeypatch):
+    """The plan's fc delta against the per-lane path it replaced for the
+    history rules and mstdp: ``fused_delta`` over the batch lanes, summed in
+    float64 and rounded once.  Every per-sample term of a history rule is an
+    exact po2 sum, so the contraction gives the same bits; mstdp's
+    magnitudes may span more binades (within the reference test's
+    tolerance).  A spy on the rule's hooks shows which datapath ran."""
+    rule_name, backend, extra, hook, bitwise = route
+    B, n_in, n_out = 16, 40, 12
+    cfg = TS.SNNConfig(name="t", input_shape=(n_in,),
+                       layers=(TS.SNNLayerSpec("fc", out_features=n_out),),
+                       backend=backend, rule=rule_name, **extra)
+    plan = TA.make_plan(cfg, "cpu")
+    rule = plan.rule
+    rng = np.random.default_rng(7)
+
+    def state(n):
+        st = rule.init_state(n, cfg.depth)
+        for _ in range(cfg.depth + 2):
+            st = rule.step(st, torch.from_numpy((rng.random(n) < 0.3).astype(np.uint8)),
+                           depth=cfg.depth)
+        return st
+
+    pre_st, post_st = state(B * n_in), state(B * n_out)
+    s_in = torch.from_numpy((rng.random((B, n_in)) < 0.3).astype(np.float32))
+    s_out = torch.from_numpy((rng.random((B, n_out)) < 0.3).astype(np.float32))
+
+    pre_read = rule.kernel_view(pre_st, packed=plan.packed)
+    post_read = rule.kernel_view(post_st, packed=plan.packed)
+    words = pre_read.dim() == 1
+    if words:
+        pre_read, post_read = pre_read.reshape(B, -1), post_read.reshape(B, -1)
+    else:
+        pre_read = pre_read.reshape(pre_read.shape[0], B, -1).transpose(0, 1)
+        post_read = post_read.reshape(post_read.shape[0], B, -1).transpose(0, 1)
+    lanes = rule.fused_delta(s_in, s_out, pre_read, post_read, plan.stdp, packed=words,
+                             depth=plan.depth, pairing=plan.pairing,
+                             compensate=plan.compensate, interpret=plan.interpret,
+                             po2=plan.po2, table=plan.table)
+    want = lanes.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    assert lanes.shape == (B, n_in, n_out) and want.abs().max() > 0
+
+    calls = []
+    for name in ("patch_delta", "fused_delta"):
+        orig = getattr(type(rule), name)
+
+        def spy(self, *a, _name=name, _orig=orig, **kw):
+            calls.append(_name)
+            return _orig(self, *a, **kw)
+
+        monkeypatch.setattr(type(rule), name, spy)
+    got = plan.fc_delta(pre_st, post_st, s_in, s_out)
+    assert calls == [hook]
+    assert got.dtype == torch.float32 and got.shape == (n_in, n_out)
+    if bitwise:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)

@@ -413,7 +413,8 @@ def test_hard_wta_tie_keeps_the_first_index_on_card(cuda):
 def test_conv_net_on_card_fused_bit_identical_to_reference(cuda, net):
     """Kernel and reference deltas are both exact float64 sums rounded once,
     so the whole trajectory agrees bit for bit; every conv layer launches
-    its kernel once per step, the fc layer the dense kernel once per step."""
+    its kernel once per step, and so does the fc layer (its batch sum is the
+    same contraction), which launches no dense kernel."""
     cfg = TS.PAPER_NETWORKS[net](backend="fused", quantise=False)
     t_steps = 16
     g = torch.Generator().manual_seed(0)
@@ -427,8 +428,8 @@ def test_conv_net_on_card_fused_bit_identical_to_reference(cuda, net):
         K.itp_stdp_update_packed.launches = 0
         runs[(backend, packed)] = TS.run_snn(st, raster, run_cfg)
         if (backend, packed) == ("fused", True):
-            assert CK.itp_stdp_conv_delta_packed.launches == 2 * t_steps
-            assert K.itp_stdp_update_packed.launches == t_steps
+            assert CK.itp_stdp_conv_delta_packed.launches == 3 * t_steps
+            assert K.itp_stdp_update_packed.launches == 0
     (sp, cp), (su, cu), (sr, cr) = runs.values()
     assert cp.sum() > 0
     assert torch.equal(cp, cu) and torch.equal(cp, cr)
@@ -436,9 +437,72 @@ def test_conv_net_on_card_fused_bit_identical_to_reference(cuda, net):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+@pytest.mark.parametrize("shape", ((256, 784, 6400), (2048, 600, 128)),
+                         ids=("snn6400-b256", "dcsnn-fc-b2048"))
+@pytest.mark.parametrize("depth", (7, 12), ids=("words-depth7", "bitplanes-depth12"))
+@pytest.mark.parametrize("rule", ("itp", "itp_nocomp"))
+def test_plan_fc_delta_sums_the_batch_in_the_conv_kernel(cuda, rule, depth, shape):
+    """The history rules' fc delta is one conv-kernel launch with the batch
+    as its rows, bit-equal to the per-lane path it replaced (kernel 1 or 2
+    over the lanes, summed in float64 and rounded once), with no host sync
+    and no dense-kernel launch; at 784 x 6,400 the plan takes the direct
+    store (more output tiles than blocks), at the DCSNN's fc it splits the
+    batch."""
+    from repro_torch import plasticity
+
+    B, n_in, n_out = shape
+    cfg = TS.SNNConfig(name="fc", input_shape=(n_in,),
+                       layers=(TS.SNNLayerSpec("fc", out_features=n_out),),
+                       backend="fused", rule=rule, depth=depth)
+    plan = plasticity.make_plan(cfg, cuda)
+    r = plan.rule
+    g = torch.Generator().manual_seed(B + depth)
+
+    def state(n):
+        st = r.init_state(n, depth, device=cuda)
+        for _ in range(depth + 2):
+            st = r.step(st, (torch.rand(n, generator=g) < 0.2).to(torch.uint8).to(cuda),
+                        depth=depth)
+        return st
+
+    pre_st, post_st = state(B * n_in), state(B * n_out)
+    s_in = (torch.rand((B, n_in), generator=g) < 0.2).float().to(cuda)
+    s_out = (torch.rand((B, n_out), generator=g) < 0.2).float().to(cuda)
+    pre_read = r.kernel_view(pre_st, packed=plan.packed)
+    post_read = r.kernel_view(post_st, packed=plan.packed)
+    words = pre_read.dim() == 1
+    assert words == (depth <= 8)
+    if words:
+        pre_read, post_read = pre_read.reshape(B, -1), post_read.reshape(B, -1)
+    else:
+        pre_read = pre_read.reshape(depth, B, -1).transpose(0, 1)
+        post_read = post_read.reshape(depth, B, -1).transpose(0, 1)
+    lanes = r.fused_delta(s_in, s_out, pre_read, post_read, plan.stdp, packed=words,
+                          depth=depth, pairing=plan.pairing, compensate=plan.compensate,
+                          interpret=False, po2=plan.po2, table=plan.table)
+    want = lanes.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    del lanes
+    wrapper = CK.itp_stdp_conv_delta_packed if words else CK.itp_stdp_conv_delta
+    plan.fc_delta(pre_st, post_st, s_in, s_out)             # warm: build, caches
+    torch.cuda.synchronize()
+    wrapper.launches = wrapper.direct_launches = 0
+    K.itp_stdp_update_packed.launches = K.itp_stdp_update.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = plan.fc_delta(pre_st, post_st, s_in, s_out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    assert wrapper.direct_launches == (1 if n_out == 6400 else 0)
+    assert K.itp_stdp_update_packed.launches == K.itp_stdp_update.launches == 0
+    assert want.abs().max() > 0 and torch.equal(got, want)
+
+
 def test_deep_history_dcsnn_fused_step_equals_reference(cuda):
-    """``itp`` at depth 64 runs unpacked (kernels 4 and 2): the DCSNN trains
-    a few steps on the fused backend bit-identical to the reference."""
+    """``itp`` at depth 64 runs unpacked (kernel 4, the fc layer's batch sum
+    too): the DCSNN trains a few steps on the fused backend bit-identical to
+    the reference."""
     cfg = TS.PAPER_NETWORKS["6layer-dcsnn"](backend="fused", quantise=False, depth=64)
     t_steps = 16
     g = torch.Generator().manual_seed(0)
@@ -452,8 +516,8 @@ def test_deep_history_dcsnn_fused_step_equals_reference(cuda):
         K.itp_stdp_update.launches = 0
         runs[backend] = TS.run_snn(st, raster, run_cfg)
         if backend == "fused":
-            assert CK.itp_stdp_conv_delta.launches == 2 * t_steps
-            assert K.itp_stdp_update.launches == t_steps
+            assert CK.itp_stdp_conv_delta.launches == 3 * t_steps
+            assert K.itp_stdp_update.launches == 0
     (sf, cf), (sr, cr) = runs["fused"], runs["reference"]
     assert cf.sum() > 0 and torch.equal(cf, cr)
     for a, b in zip(sf.weights, sr.weights):
@@ -1114,8 +1178,9 @@ def test_sparse_engine_on_card_bit_equal_to_fused(cuda):
 
 @pytest.mark.parametrize("net", ("engine", "6layer-dcsnn", "2layer-snn"))
 def test_mstdp_on_card_fused_matches_reference(cuda, net):
-    """mstdp's fused cells launch kernel 2 (engine, fc) and kernel 4 (conv)
-    on depth-1 magnitude planes, never the packed kernels 1 and 3; fused and
+    """mstdp's fused cells launch kernel 2 (engine) and kernel 4 (conv, and
+    the fc layers' batch sum) on depth-1 magnitude planes, never the packed
+    kernels 1 and 3; fused and
     reference runs on the card agree on every spike and, within the parity
     tolerance, on the weights."""
     from repro_torch.core import engine as TE
@@ -1134,7 +1199,7 @@ def test_mstdp_on_card_fused_matches_reference(cuda, net):
                       < 0.1).float().to(cuda)
             final, post = TE.run_engine(st, raster, cfg)
             runs[backend] = ((final.w,), post)
-            conv = 0
+            dense, conv = 1, 0
         else:
             cfg = TS.PAPER_NETWORKS[net]("mstdp", backend=backend, quantise=False)
             st = TS.init_snn(cfg, 4, generator=torch.Generator().manual_seed(1), device=cuda)
@@ -1142,9 +1207,11 @@ def test_mstdp_on_card_fused_matches_reference(cuda, net):
                                  generator=torch.Generator().manual_seed(2)) < 0.3)
             final, counts = TS.run_snn(st, raster.float().to(cuda), cfg)
             runs[backend] = (final.weights, counts)
-            conv = sum(spec.kind.startswith("conv") for spec in cfg.layers)
+            # every learnable layer, the fc layer's batch sum included
+            dense = 0
+            conv = sum(spec.kind.startswith(("conv", "fc")) for spec in cfg.layers)
         if backend == "fused":
-            assert K.itp_stdp_update.launches == t_steps
+            assert K.itp_stdp_update.launches == dense * t_steps
             assert CK.itp_stdp_conv_delta.launches == conv * t_steps
             assert K.itp_stdp_update_packed.launches == CK.itp_stdp_conv_delta_packed.launches == 0
     (wf, of), (wr, orf) = runs["fused"], runs["reference"]

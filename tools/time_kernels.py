@@ -12,7 +12,10 @@ then timed: device ms per call from a profiler trace of 50 calls (the
 ``chip_smoke.py``.  Then the conv deltas, kernels 3 (``itp_stdp_conv_delta_packed``),
 4 (``itp_stdp_conv_delta``) and 6 (``counter_conv_delta``, each window), at
 the four conv layers of ``chip_smoke.CONV_CASES``, depth 7, held against
-their plain versions within the conv tolerance and timed likewise.
+their plain versions within the conv tolerance and timed likewise; kernels 3
+and 4 also at the fc layers' shapes (``FC_CASES``: chip_smoke's batch-16
+layers and ``chip_smoke.FC_CASES``, the benchmark's 256 × 784 × 6,400 and
+2,048 × 600 × 128), where they sum the batch of the SNN fc delta.
 
 Then the side kernels, 7 (``lif_update``), 8 (``llsmu_multiply``, on
 element pairs and, where the version has it, with one ``b`` for every
@@ -76,23 +79,29 @@ import chip_smoke as S  # noqa: E402  (after the path; imports no repro_torch)
 SHAPES = {"serving": (8, 784, 100), **{k: v for k, v in S.COUNTER_FC_CASES.items()
                                        if k != "serving"}}
 DEPTH = 7
+# the fc layers' batch-summed delta on kernels 3 and 4 (M = the batch):
+# chip_smoke.py's batch-16 layers and the benchmark's
+FC_CASES = {**{k: v for k, v in S.COUNTER_FC_CASES.items() if k.endswith(" fc")},
+            **S.FC_CASES}
 # launches per shape in one run of chip_smoke.py: serving 4 batches x 16
 # steps (itp packed and unpacked, exact, mstdp); the DCSNN 3 batches x 30
 # steps (itp packed and unpacked, exact) or 1 batch (imstdp, mstdp, itp on
 # sparse); the CSNN 1 batch (itp packed and unpacked, linear); the 2layer-snn
 # protocol 6 epochs x 8 batches x 30 steps (itp, exact, mstdp).  mstdp runs
-# kernels 2 and 4; the sparse DCSNN kernel 4 on its gathered (uncapped: all
-# M) rows
+# kernels 2 and 4; the history rules' and mstdp's fc layers kernels 3 and 4;
+# the sparse DCSNN kernel 4 on its gathered (uncapped: all M) rows and no fc
+# kernel
 _DCSNN, _CSNN, _CONV = {"DCSNN fc": 90}, {"CSNN fc": 30}, {
     "DCSNN conv1": 90, "DCSNN conv2": 90, "CSNN conv1": 30, "CSNN conv2": 30}
 LAUNCHES = {
-    "itp_stdp_update_packed": {"serving": 64, "2layer-snn fc": 1440, **_DCSNN, **_CSNN},
-    "itp_stdp_update": {"serving": 128, "2layer-snn fc": 1440, "DCSNN fc": 120, **_CSNN},
+    "itp_stdp_update_packed": {"serving": 64},
+    "itp_stdp_update": {"serving": 128},
     "counter_stdp_update[exact]": {"serving": 64, "2layer-snn fc": 1440, **_DCSNN},
     "counter_stdp_update[linear]": dict(_CSNN),
     "counter_stdp_update[imstdp]": {"DCSNN fc": 30},
-    "itp_stdp_conv_delta_packed": dict(_CONV),
-    "itp_stdp_conv_delta": {**_CONV, "DCSNN conv1": 150, "DCSNN conv2": 150},
+    "itp_stdp_conv_delta_packed": {**_CONV, "2layer-snn fc": 1440, **_DCSNN, **_CSNN},
+    "itp_stdp_conv_delta": {**_CONV, "DCSNN conv1": 150, "DCSNN conv2": 150,
+                            "2layer-snn fc": 1440, "DCSNN fc": 120, **_CSNN},
     "counter_conv_delta[exact]": {"DCSNN conv1": 90, "DCSNN conv2": 90},
     "counter_conv_delta[linear]": {"CSNN conv1": 30, "CSNN conv2": 30},
     "counter_conv_delta[imstdp]": {"DCSNN conv1": 30, "DCSNN conv2": 30},
@@ -427,7 +436,7 @@ def main() -> int:
     from repro_torch.kernels.itp_stdp_conv import kernel as CK
     from repro_torch.kernels.itp_stdp_conv import ref as CR
 
-    for case, (m, k, c) in ({} if args.side else S.CONV_CASES).items():
+    for case, (m, k, c) in ({} if args.side else {**S.CONV_CASES, **FC_CASES}).items():
         gen = torch.Generator().manual_seed(m + k + c)
         pre = (torch.rand((m, k), generator=gen) < 0.3).float().to(device)
         post = (torch.rand((m, c), generator=gen) < 0.25).float().to(device)
@@ -447,7 +456,7 @@ def main() -> int:
                 lambda: CR.itp_stdp_conv_delta_ref(pre, post, pre_b, post_b, *po2),
                 S._conv_bound(m, k, c, DEPTH, False)),
         }
-        for window in S.COUNTER_WINDOWS:
+        for window in S.COUNTER_WINDOWS if case in S.CONV_CASES else ():
             ckw = dict(depth=DEPTH, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
                        tau_plus=p.tau_plus, tau_minus=p.tau_minus)
             runs[f"counter_conv_delta[{window}]"] = (

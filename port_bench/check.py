@@ -1,5 +1,5 @@
-"""The comparison that decides ``correct``: what the recorded steps of the
-timed call produced, against the plain reference.
+"""The SNN family's comparison that decides ``correct``: what the recorded
+steps of the timed call produced, against the plain reference.
 
 The reference follows the program step by step from the program's own
 state (``PERF.md`` says why): a float32 product sums its inputs in another

@@ -1,5 +1,8 @@
 """Operations and bytes of a step, counted from shapes, and the card's peaks.
 
+The SNN's counts come first; the LM section (:func:`lm_step_flops`) counts
+a decoder's training step.
+
 Frozen here so that no change to the program can change the yardstick.
 The peaks and ``WINDOW_OPS`` are copied from ``chip_smoke.py``;
 :func:`delta_bound` is its ``_conv_bound``, which also serves an fc layer
@@ -14,6 +17,7 @@ import math
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989.4e12      # H100 SXM bfloat16 on the tensor cores, dense
 # float32 operations of one window evaluation (the exp counted as one)
 WINDOW_OPS = {"exact": 4, "linear": 6, "imstdp": 1}
 HISTORY_RULES = ("itp", "itp_nocomp")
@@ -91,3 +95,30 @@ def update_bound_s(cfg: dict, traffic: dict) -> float:
     packed = window is not None or cfg["packed_history"]
     return sum(delta_bound(m, k, c, cfg["depth"], packed, window)[0]
                for m, k, c in layer_dims(cfg, traffic["batch"])) / 1e3
+
+
+# ---------------------------------------------------------------------------
+# LM training step (configuration files in Hugging Face keys)
+# ---------------------------------------------------------------------------
+
+def lm_matrix_params(cfg: dict) -> int:
+    """Weights that enter a matrix product for each token: every layer's
+    q, k, v and o projections and its SwiGLU, and the unembedding once (the
+    tied token table or the output matrix); the embedding lookup is none."""
+    D, F = cfg["hidden_size"], cfg["intermediate_size"]
+    H, K, hd = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
+    per_layer = D * H * hd + 2 * D * K * hd + H * hd * D + 3 * D * F
+    return cfg["num_hidden_layers"] * per_layer + cfg["vocab_size"] * D
+
+
+def lm_flops_per_token(cfg: dict, seq: int) -> int:
+    """Model FLOPs of one token's forward and backward: 6 per matrix weight,
+    plus causal attention's 6 · layers · seq · heads · head_dim (its two
+    products, half of the seq × seq scores each, three passes); no recompute."""
+    attention = 6 * cfg["num_hidden_layers"] * seq * cfg["num_attention_heads"] * cfg["head_dim"]
+    return 6 * lm_matrix_params(cfg) + attention
+
+
+def lm_step_flops(cfg: dict, traffic: dict) -> int:
+    """Model FLOPs of one training step of ``batch`` sequences of ``seq``."""
+    return traffic["batch"] * traffic["seq"] * lm_flops_per_token(cfg, traffic["seq"])

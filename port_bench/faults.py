@@ -1,4 +1,4 @@
-"""Faults planted in the program's timed path, to show that the comparison
+"""Faults planted in the SNN's timed path, to show that the comparison
 catches them (``tests/test_port_bench_faults.py``) and to read the upper
 limits of its numbers on the card (``readings.py``).
 

@@ -10,6 +10,7 @@ import pytest
 from tiny import CELLS, ROOT, tiny_root
 
 from port_bench import run
+from port_bench.families import snn as snn_family
 from port_bench.reference import snn as ref
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -33,7 +34,7 @@ def test_contract_keys_and_names():
 def test_cell_loads_by_name(cell):
     spec = run.load_cell(cell)
     assert spec["cfg"]["name"] == spec["cell"]["config"]
-    assert set(spec["limits"]) <= {"v_gap", "dw_gap", "w_gap", "mismatches"}
+    assert set(spec["limits"]) <= set(run.family_module(spec).NUMBERS)
     for m in spec["per_layer"]:
         assert callable(run.metric_reader(ROOT, m["name"]).read)
     assert {m["name"] for m in spec["end_to_end"]} == {"samples_per_s", "setup_s"}
@@ -62,11 +63,11 @@ def test_new_metric_and_cell_from_new_files(tmp_path):
     root = tiny_root(tmp_path)
     (root / "port_bench" / "metrics" / "batches_traced.py").write_text(
         "def read(tr):\n    return float(tr.batches)\n")
-    traffic = json.loads((root / "port_bench/traffic/train-b256.json").read_text())
+    traffic = json.loads((root / "port_bench/traffic/train-b1024.json").read_text())
     traffic.update(batch=6)
     (root / "port_bench/traffic/train-b6.json").write_text(json.dumps(traffic))
     (root / "port_bench/limits/snn64-train-b6.json").write_text(
-        (root / "port_bench/limits/dcsnn-train-b2048.json").read_text())
+        (root / "port_bench/limits/dcsnn-train-b4096.json").read_text())
     bench = json.loads((root / "BENCHMARK.json").read_text())
     bench["workloads"].append({"name": "snn64-train-b6", "config": "2layer-snn-6400",
                                "traffic": "train-b6", "chips": 1, "why": "a test cell"})
@@ -77,7 +78,7 @@ def test_new_metric_and_cell_from_new_files(tmp_path):
     spec = run.load_cell("snn64-train-b6", root)
     line, _ = run.run_cell(spec, 11, 0.0, 1, "cpu")
     assert line["correct"]
-    assert line["metrics"]["batches_traced"]["value"] == run.TRACE_BATCHES
+    assert line["metrics"]["batches_traced"]["value"] == snn_family.TRACE_BATCHES
     # metrics without a list of cells reach the new cell; listed ones do not
-    assert {"host_ms_per_step", "mfu"} <= set(line["metrics"])
-    assert "update_launches_per_step" not in line["metrics"]
+    assert "device_idle_pct" not in line["metrics"]          # no device events here
+    assert not {"host_ms_per_step", "mfu", "update_launches_per_step"} & set(line["metrics"])

@@ -10,7 +10,7 @@ import sys
 import pytest
 from tiny import CELLS, ROOT, tiny_root
 
-from port_bench import run, system
+from port_bench import run
 
 
 def _cuda():
@@ -29,7 +29,8 @@ def test_cell_and_control_on_the_card(tmp_path, cell):
     line, numbers = run.run_cell(spec, 9, 0.0, 1, device)
     assert line["correct"], numbers
     assert line["device"]["busy_s"] > 0
-    line, _ = run.run_cell(spec, 9, 0.0, 0, device, make_net=system.ReferenceNet)
+    line, _ = run.run_cell(spec, 9, 0.0, 0, device,
+                           make_net=run.family_module(spec).CONTROL)
     assert not line["correct"]
 
 

@@ -1,17 +1,18 @@
-"""The plain reference agrees with the port on the CPU at a tiny width: each
-cell, cut by ``tiny.tiny_root``, runs its timed path and its comparison and
-comes out correct under the cell's own limits."""
+"""The SNN's plain reference agrees with the port on the CPU at a tiny
+width: each SNN cell, cut by ``tiny.tiny_root``, runs its timed path and its
+comparison and comes out correct under the cell's own limits (the LM's:
+``test_port_bench_lm.py``)."""
 from __future__ import annotations
 
 import pytest
 import torch
-from tiny import CELLS, tiny_root
+from tiny import SNN_CELLS, tiny_root
 
 from port_bench import run
 from port_bench.reference import snn as ref
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SNN_CELLS)
 def test_cell_correct_on_cpu(tmp_path, cell):
     spec = run.load_cell(cell, tiny_root(tmp_path))
     line, numbers = run.run_cell(spec, 2**31 + 7, 0.0, 0, "cpu")

@@ -10,10 +10,11 @@ import types
 
 import pytest
 import torch
-from tiny import CELLS, ROOT, tiny_root
+from tiny import ROOT, SNN_CELLS, tiny_root
 
 from port_bench import inputs, program_spans, run, system
 from port_bench import trace as tracing
+from port_bench.families import snn as snn_family
 from port_bench.reference import snn as ref
 
 NEW = ("product_device_ms_per_step", "neuron_device_ms_per_step",
@@ -23,21 +24,21 @@ OLD = ("host_ms_per_step", "mfu", "update_launches_per_step", "update_roofline_p
 
 
 def _stretch(spec, device, seed=5, keep_prof=None):
-    """Set-up as a run makes it, then ``run.TRACE_BATCHES`` traced batches;
-    ``keep_prof`` (a dict) receives the profiler."""
+    """Set-up as a run makes it, then ``snn_family.TRACE_BATCHES`` traced
+    batches; ``keep_prof`` (a dict) receives the profiler."""
     cfg, traffic = spec["cfg"], spec["traffic"]
     mode = traffic["mode"]
     weights = inputs.initial_weights(ref.weight_shapes(cfg), seed, device)
-    pool = inputs.raster_pool(traffic, run.POOL[mode], seed, device)
+    pool = inputs.raster_pool(traffic, snn_family.POOL[mode], seed, device)
     net = system.ProgramNet(cfg, traffic, weights, device)
-    first = run.SETUP_BATCHES[mode]
+    first = snn_family.SETUP_BATCHES[mode]
     for i in range(first):
         net.run_batch(pool[i])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if keep_prof is None:
-        return tracing.capture(net, pool, first, run.TRACE_BATCHES, cfg, traffic, {},
-                               device)
+        return tracing.capture(net, pool, first, snn_family.TRACE_BATCHES, cfg, traffic,
+                               {}, device)
     launched_in_update = tracing._launched_in_update
 
     def kept(prof):
@@ -46,8 +47,8 @@ def _stretch(spec, device, seed=5, keep_prof=None):
 
     tracing._launched_in_update = kept
     try:
-        return tracing.capture(net, pool, first, run.TRACE_BATCHES, cfg, traffic, {},
-                               device)
+        return tracing.capture(net, pool, first, snn_family.TRACE_BATCHES, cfg, traffic,
+                               {}, device)
     finally:
         tracing._launched_in_update = launched_in_update
 
@@ -88,7 +89,7 @@ def test_launches_pair_by_order_from_the_end():
     assert program_spans.launches(_fake([], [])) == []
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SNN_CELLS)
 def test_tiny_traced_run_on_the_cpu(tmp_path, cell):
     spec = run.load_cell(cell, tiny_root(tmp_path))
     tr = _stretch(spec, torch.device("cpu"))
@@ -96,7 +97,7 @@ def test_tiny_traced_run_on_the_cpu(tmp_path, cell):
     learnable = sum(layer["kind"] != "pool2d" for layer in spec["cfg"]["layers"])
     got = program_spans.read(tr)
     calls = {name.rsplit(".", 1)[1]: row["calls"] for name, row in got.items()}
-    n = run.TRACE_BATCHES
+    n = snn_family.TRACE_BATCHES
     want = {"run": n, "reset": n, "step": tr.steps, "product": tr.steps * learnable,
             "neurons": tr.steps * learnable, "timing": tr.steps * learnable}
     if train:
@@ -137,10 +138,9 @@ def _by_correlation(prof) -> dict:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SNN_CELLS)
 def test_stretch_on_the_card(cell):
-    """Each cell at its size (``dcsnn-train-b2048`` the one the host holds
-    back): the order pairing agrees with the correlation ids, the program's
+    """Each SNN cell at its size: the order pairing agrees with the correlation ids, the program's
     spans hold the stretch's device time, and ``repro_torch.snn.update`` the
     benchmark's own ``port_bench.update``."""
     if not torch.cuda.is_available():

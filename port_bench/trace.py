@@ -6,7 +6,9 @@ layers (the program has none yet): ``port_bench.run_snn`` around each
 ``run_snn`` call, ``port_bench.update`` around the plan's ``fc_delta`` and
 ``conv_delta``, and ``port_bench.window`` around the whole stretch, which
 ends on a synchronisation.  It also reads the launch counters
-(``<wrapper>.launches``) of the kernel wrappers over the stretch.
+(``<wrapper>.launches``) of the kernel wrappers over the stretch.  The LM
+family (``families/lm.py``) profiles whole training steps into the same
+:class:`Trace` through :func:`events`, with no spans or counters of its own.
 """
 from __future__ import annotations
 
@@ -163,7 +165,6 @@ def capture(net, pool: list, first: int, batches: int, cfg: dict, traffic: dict,
     counts of the batches named in ``keep`` are kept there."""
     from torch.profiler import ProfilerActivity, profile
 
-    DeviceType = torch.autograd.DeviceType
     cuda = device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     before = launch_counters()
@@ -177,6 +178,18 @@ def capture(net, pool: list, first: int, batches: int, cfg: dict, traffic: dict,
                 torch.cuda.synchronize(device)
     after = launch_counters()
     update_launched = _launched_in_update(prof)
+    split = events(prof)
+    return Trace(cfg=cfg, traffic=traffic, batches=batches,
+                 steps=batches * traffic["t_steps"], update_device_us=update_launched,
+                 launches={k: after[k] - before.get(k, 0) for k in after}, **split)
+
+
+def events(prof) -> dict:
+    """A profiled stretch's events as :class:`Trace` keeps them: the
+    ``port_bench.window`` span, the device operations (user annotations and
+    the benchmark's own spans left out), the benchmark's ``run_snn`` spans,
+    the CUDA runtime calls and the other host events."""
+    DeviceType = torch.autograd.DeviceType
     device, runtime, host_ops, run_spans = [], [], [], []
     window = None
     for evt in prof.events():
@@ -194,8 +207,5 @@ def capture(net, pool: list, first: int, batches: int, cfg: dict, traffic: dict,
             runtime.append((s, e, evt.name))
         elif evt.name != "port_bench.update":
             host_ops.append((s, e, evt.name))
-    return Trace(cfg=cfg, traffic=traffic, batches=batches,
-                 steps=batches * traffic["t_steps"], window=window, device=device,
-                 run_spans=run_spans, update_device_us=update_launched, runtime=runtime,
-                 host_ops=host_ops,
-                 launches={k: after[k] - before.get(k, 0) for k in after})
+    return {"window": window, "device": device, "run_spans": run_spans,
+            "runtime": runtime, "host_ops": host_ops}

@@ -145,11 +145,12 @@ printed on lines of its own:
              sharded step's wall ms beside the unsharded one's;
 15. lm      — the LM stack's forward and decode (ROADMAP item 18b; no
              kernel of its own: its products are torch matmuls, as the
-             reference's are XLA dots outside any Pallas kernel): the ten smoke
-             configs at float32, ``forward`` (logits, aux losses) and 8
-             ``decode_step``s (logits, caches) on the card against the port on
-             the CPU within the LM float32 clause (rtol=1e-4, atol=1e-5; the
-             SSM family rtol=atol=2e-3), the MoE configs bit-equal on two CUDA
+             reference's are XLA dots outside any Pallas kernel): the eleven
+             smoke configs at float32, ``forward`` (logits, aux losses) and 8
+             ``decode_step``s (logits, caches; granite-4.0-h-micro has no
+             decode) on the card against the port on the CPU within the LM
+             float32 clause (rtol=1e-4, atol=1e-5; the SSM and interleaved
+             families rtol=atol=2e-3), the MoE configs bit-equal on two CUDA
              runs; qwen3-0.6b at full width and depth (596,049,920 float32
              parameters from the port's seeded ``init_model``): float32
              teacher-forced decode ≡ ``forward`` at B=2, S=64 within 1e-3 of
@@ -165,11 +166,11 @@ printed on lines of its own:
              qwen2-moe-a2.7b MoE layer at full width (60 experts padded to 64,
              d 2,048): bfloat16 at B=4 × S=4,096 bit-equal over two runs,
              timed, float32 at B=1 × S=256 on the card ≡ the CPU;
-16. lm_train — LM training with ITP-AdamW (ROADMAP item 18c): the ten smoke
-             configs at float32, one AdamW step on the card against the port
-             on the CPU within the LM float32 clause (the SSM and hybrid
-             families within 2e-3) and one ITP-AdamW step twice on the card,
-             bit-equal; qwen3-0.6b at full width and depth (596,049,920
+16. lm_train — LM training with ITP-AdamW (ROADMAP item 18c): the eleven
+             smoke configs at float32, one AdamW step on the card against the
+             port on the CPU within the LM float32 clause (the SSM, hybrid and
+             interleaved families within 2e-3) and one ITP-AdamW step twice on
+             the card, bit-equal; qwen3-0.6b at full width and depth (596,049,920
              float32 master parameters, bfloat16 compute) trained with
              ITP-AdamW at B=4 × S=2,048 on Zipf tokens with ``remat="full"``:
              one warm-up step, 4 timed steps (ms a step, tokens/s, peak
@@ -2289,6 +2290,8 @@ def _lm_run(cfg, params, toks, vis, device, steps: int) -> list:
 
     kw = {} if vis is None else {"vis_embed": vis}
     logits, aux = forward(params, cfg, tokens=toks, **kw)
+    if cfg.family == "interleaved":          # training and prefill only: no decode cache
+        return [logits, aux["moe_aux"], aux["moe_z"]]
     cache = init_decode_cache(cfg, toks.shape[0], steps, torch.float32, device=device)
     dec = []
     for t in range(steps):
@@ -2298,7 +2301,7 @@ def _lm_run(cfg, params, toks, vis, device, steps: int) -> list:
 
 
 def _lm_families(device, cpu) -> dict:
-    """The ten smoke configs at float32: the card against the CPU."""
+    """Every registered smoke config at float32: the card against the CPU."""
     import dataclasses
 
     import torch
@@ -2321,7 +2324,7 @@ def _lm_families(device, cpu) -> dict:
                    steps)
         got = _lm_run(*on_card)
         want = _lm_run(cfg, params, toks, vis, cpu, steps)
-        tol = LM_SSM_TOL if cfg.family == "ssm" else LM_TOL
+        tol = LM_SSM_TOL if cfg.family in ("ssm", "interleaved") else LM_TOL
         if len(got) != len(want):
             raise SystemExit(f"lm: {arch}: {len(got)} outputs on the card, {len(want)} on the CPU")
         err = max(_lm_close(f"{arch} output {j}", g, w, tol)
@@ -2332,9 +2335,12 @@ def _lm_families(device, cpu) -> dict:
             twice = f"; two card runs bit-equal {same}"
             if not same:
                 raise SystemExit(f"lm: {arch}: two CUDA runs differ")
-        _phase("lm", f"{arch} smoke (float32, B={B}, S={S}, {steps} decode steps): card == "
-               f"CPU within {tol}, max|err| {err:.3g} over {len(got)} outputs (logits, two aux "
-               f"losses, decode logits, {len(got) - 4} cache leaves){twice}")
+        decoded = len(got) > 3
+        what = ("logits, two aux losses" + (f", decode logits, {len(got) - 4} cache leaves"
+                                           if decoded else ""))
+        _phase("lm", f"{arch} smoke (float32, B={B}, S={S}, {steps if decoded else 0} decode "
+               f"steps): card == CPU within {tol}, max|err| {err:.3g} over {len(got)} outputs "
+               f"({what}){twice}")
         out[arch] = err
     return out
 
@@ -2568,7 +2574,7 @@ def _lm_moe(device, cpu, smi: str) -> dict:
 
 def phase_lm(device, smi: str) -> dict:
     """The LM stack's forward and decode (ROADMAP item 18b) on the card: the
-    ten smoke configs against the port on the CPU, qwen3-0.6b and
+    smoke configs against the port on the CPU, qwen3-0.6b and
     mamba2-1.3b at full width and depth, one qwen2-moe-a2.7b MoE layer at
     full width.  Each load frees its parameters before the next."""
     import torch
@@ -2611,8 +2617,8 @@ def _bitwise(a, b) -> bool:
 
 
 def _lm_train_smoke(device, cpu) -> dict:
-    """The ten smoke configs at float32: one AdamW step on the card against
-    the CPU, one ITP-AdamW step twice on the card."""
+    """Every registered smoke config at float32: one AdamW step on the card
+    against the CPU, one ITP-AdamW step twice on the card."""
     import dataclasses
 
     import torch
@@ -2636,7 +2642,7 @@ def _lm_train_smoke(device, cpu) -> dict:
         card = [_to_device(x, device) for x in (params, state, batch)]
         adamw = _lm_train_step(cfg, remat="none", po2_update=False)
         want, got = adamw(params, state, batch), adamw(*card)
-        tol = LM_SSM_TOL if cfg.family in ("ssm", "hybrid") else LM_TOL
+        tol = LM_SSM_TOL if cfg.family in ("ssm", "hybrid", "interleaved") else LM_TOL
         err = max(_lm_close(f"{arch} step: leaf {j}", g, w, tol) for j, (g, w) in
                   enumerate(zip(tree_leaves(got[:2]), tree_leaves(want[:2]))))
         for name in want[2]:

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 (port of ``repro.configs``; ROADMAP item 18a).
 
-Ten assigned LM architectures, each file with its published source; the
-paper's own SNN networks are made by ``repro_torch.models.snn`` and are not
-part of this registry.
+The ten assigned LM architectures of the JAX package, each file with its
+published source, then granite-4.0-h-micro, which only the port runs (an
+``InterleavedConfig``); the paper's own SNN networks are made by
+``repro_torch.models.snn`` and are not part of this registry.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -48,6 +48,7 @@ from repro_torch.distributed.sharding import (column_parallel, constrain, copy_t
                                               cut_of, gather_from_model, model_dim, on_model,
                                               over_decode_axes, row_parallel, tp_mesh, tp_rank,
                                               tp_size, tp_splits)
+from repro_torch.models.config import multiplier
 from repro_torch.models.kvcache import clamped_start
 from repro_torch.models.layers import (Params, apply_rope, dense_init, init_device,
                                        pdtype, rms_head_norm)
@@ -176,16 +177,17 @@ def _gqa_accum(pb: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int = 0, block_q: int = 1024, block_kv: int = 1024,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
     """Causal (optionally sliding-window) attention, O(block²) memory.
 
     q: (B,S,H,hd); k,v: (B,T,K,hd) with T ≥ S (self-attention uses T=S;
-    chunked prefill may pass a longer KV with ``q_offset``).
+    chunked prefill may pass a longer KV with ``q_offset``).  ``scale``
+    multiplies the scores (1/sqrt(hd) where None).
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     bq = min(block_q, S)
     bkv = min(block_kv, T)
     if S % bq or T % bkv:
@@ -229,12 +231,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor | None) -> torch.Tensor:
-    """Unblocked attention (cross-attention / decode / short sequences)."""
+                    mask: torch.Tensor | None, scale: float | None = None) -> torch.Tensor:
+    """Unblocked attention (cross-attention / decode / short sequences);
+    ``scale`` as in :func:`blockwise_attention`."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     s = _gqa_scores(q.reshape(B, S, K, G, hd), k, scale)   # (B,K,G,S,T)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
@@ -246,20 +249,23 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def self_attention_train(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                          window: int = 0, block_q: int = 1024,
                          block_kv: int = 1024) -> torch.Tensor:
-    """Causal self-attention for the training/prefill path."""
+    """Causal self-attention for the training/prefill path: RoPE only where
+    ``cfg.pos_embedding`` is ``"rope"`` (none for NoPE), the softmax scale
+    ``cfg.attention_multiplier`` where it sets one."""
     q, k, v = project_qkv(p, x, x, cfg, positions=positions,
                           rope=cfg.pos_embedding == "rope")
     k, v = kv_for_heads(q, k, v, cfg)
     B, S = x.shape[:2]
+    scale = multiplier(cfg, "attention_multiplier") or None
     if S <= block_q:  # short sequence: dense with causal mask
         pos = positions[0] if positions.ndim > 1 else positions
         mask = pos[:, None] >= pos[None, :]
         if window > 0:
             mask &= (pos[:, None] - pos[None, :]) < window
-        o = dense_attention(q, k, v, mask)
+        o = dense_attention(q, k, v, mask, scale)
     else:
         o = blockwise_attention(q, k, v, window=window, block_q=block_q,
-                                block_kv=block_kv)
+                                block_kv=block_kv, scale=scale)
     return _out_proj(p, o, cfg)
 
 

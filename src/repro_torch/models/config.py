@@ -6,6 +6,14 @@ VLM / audio); family-specific fields are zero/empty when unused.  Configs
 are pure data: shapes and counts, no weights.  The dtype fields stay
 strings, as in the reference; the model code (item 18b) maps them to torch
 dtypes.
+
+:class:`InterleavedConfig` adds the one family the JAX package does not
+have: a stack whose layers take their mixer, Mamba-2 or attention, from a
+per-layer pattern, each followed by an MLP, with μP multipliers
+(granite-4.0-h).  Its new fields are its own, so the ten reference
+configs' ``dataclasses.asdict`` is the JAX package's, field for field; the
+model code reads the multipliers with :func:`multiplier`, which also
+takes a config of either package that has none.
 """
 from __future__ import annotations
 
@@ -152,3 +160,64 @@ class ModelConfig:
         inactive = (self.n_experts - self.n_experts_per_tok) * 3 * self.d_model \
             * self.moe_d_ff * self.n_layers
         return full - inactive
+
+
+LAYER_KINDS = ("mamba", "attention")
+# InterleavedConfig's μP multipliers, and their value where a config has none
+MULTIPLIERS_OFF = {"embedding_multiplier": 0.0, "attention_multiplier": 0.0,
+                   "residual_multiplier": 1.0, "logits_scaling": 0.0}
+
+
+def multiplier(cfg, name: str) -> float:
+    """``cfg``'s μP multiplier ``name``; off (``MULTIPLIERS_OFF``) for a
+    config without it (every config but an ``InterleavedConfig``)."""
+    return getattr(cfg, name, MULTIPLIERS_OFF[name])
+
+
+@dataclasses.dataclass(frozen=True)
+class InterleavedConfig(ModelConfig):
+    """A stack of Mamba-2 and attention layers in the order ``layer_types``
+    gives (family ``"interleaved"``; granite-4.0-h).  Each layer is norm →
+    mixer → × ``residual_multiplier`` → add, then norm → MLP (width ``d_ff``)
+    → × ``residual_multiplier`` → add.  ``embedding_multiplier`` scales the
+    token rows, ``logits_scaling`` divides the logits, and
+    ``attention_multiplier`` is the softmax scale (each 0: off, 1/sqrt(hd)
+    for the scale)."""
+
+    layer_types: Tuple[str, ...] = ()
+    embedding_multiplier: float = 0.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 0.0
+
+    def __post_init__(self):
+        if self.family != "interleaved":
+            raise ValueError(f"an InterleavedConfig has family 'interleaved', not "
+                             f"{self.family!r}")
+        if len(self.layer_types) != self.n_layers or not set(self.layer_types) <= set(LAYER_KINDS):
+            raise ValueError(f"layer_types must give one of {LAYER_KINDS} for each of the "
+                             f"{self.n_layers} layers, not {self.layer_types}")
+
+    @property
+    def has_ssm(self) -> bool:
+        return True
+
+    def n_layers_of(self, kind: str) -> int:
+        return self.layer_types.count(kind)
+
+    def param_count(self) -> int:
+        """Every parameter the port's ``init_model`` draws: the (tied)
+        token table, the final norm, and per layer its two norms and its
+        MLP, plus its mixer: the attention projections in an attention
+        layer, the SSM's (projections, conv and its bias, A, D, dt bias,
+        gated norm) in a Mamba layer."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff + 2 * d
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        di, g, ns, heads = self.d_inner, self.ssm_groups, self.ssm_state, self.ssm_heads
+        conv_dim = di + 2 * g * ns
+        ssm = (d * (di + conv_dim + heads) + (self.d_conv + 1) * conv_dim + di * d
+               + 3 * heads + di)
+        return (n + self.n_layers * mlp + self.n_layers_of("attention") * attn
+                + self.n_layers_of("mamba") * ssm)

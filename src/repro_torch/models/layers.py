@@ -30,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (column_parallel, constrain, model_dim, on_model,
                                               reduce_from_model, row_parallel, tp_rank,
                                               tp_size, tp_width)
+from repro_torch.models.config import multiplier
 
 Params = dict[str, Any]
 
@@ -194,27 +195,35 @@ def init_embedding(gen, cfg, *, device: str | torch.device = "cuda") -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Token rows.  Tensor-parallel with the table's rows on 'model': each
-    rank looks up the tokens its rows hold, zeroes the others, and the
+    """Token rows, times ``cfg.embedding_multiplier`` in the compute dtype
+    where it sets one.  Tensor-parallel with the table's rows on 'model':
+    each rank looks up the tokens its rows hold, zeroes the others, and the
     ranks' rows are summed (the backward writes the rank's rows only)."""
     # the reference casts the whole table, then gathers (layers.py:142);
     # gathering first and casting the rows gives the same bits
     tok = p["tok"]
     if not tp_width(tok.shape[0], cfg.vocab_size, "embed/tok") or tp_size() == 1:
-        return tok[tokens].to(cdtype(cfg))
-    lo = tp_rank() * tok.shape[0]
-    mine = (tokens >= lo) & (tokens < lo + tok.shape[0])
-    rows = tok[torch.where(mine, tokens - lo, 0)].to(cdtype(cfg))
-    return reduce_from_model(torch.where(mine[..., None], rows, 0.0))
+        x = tok[tokens].to(cdtype(cfg))
+    else:
+        lo = tp_rank() * tok.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + tok.shape[0])
+        rows = tok[torch.where(mine, tokens - lo, 0)].to(cdtype(cfg))
+        x = reduce_from_model(torch.where(mine[..., None], rows, 0.0))
+    scale = multiplier(cfg, "embedding_multiplier")
+    return x * scale if scale else x
 
 
 def unembed(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Logits; tensor-parallel, column-parallel over the vocabulary (a tied
-    table's rank rows, as in :func:`embed`), left vocab-sharded."""
+    """Logits, divided by ``cfg.logits_scaling`` where it sets one;
+    tensor-parallel, column-parallel over the vocabulary (a tied table's
+    rank rows, as in :func:`embed`), left vocab-sharded."""
     # the reference casts the float32 table on every call; so does the port
     w = p["tok"].to(x.dtype).T if cfg.tie_embeddings else p["out"].to(x.dtype)
     logits, = column_parallel(x, (w, cfg.vocab_size, "unembed"))
     if cfg.logit_softcap:
         logits = on_model(cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap),
                           model_dim(logits))
+    scaling = multiplier(cfg, "logits_scaling")
+    if scaling:
+        logits = on_model(logits / scaling, model_dim(logits))
     return logits

@@ -4,7 +4,11 @@
 Training/prefill uses the chunked dual form: within a chunk a masked,
 attention-like quadratic einsum; across chunks a linear recurrence over the
 carried (heads, d_state, head_dim) state, here a Python loop over the
-chunks where the reference runs a ``lax.scan``.  Groups stay factorised
+chunks where the reference runs a ``lax.scan``.  Everything but the carried
+state is computed for every chunk at once, the chunks a batch dimension
+(each chunk's diagonal block, the state it hands on, its read of the state
+it is handed), so the loop holds two small ops a chunk and a step's host
+work does not grow with the chunk count's ops.  Groups stay factorised
 inside the einsums (B/C are never broadcast per head).
 
 The three-operand einsums (``ssm.py:128,131,137``) may contract in another
@@ -55,6 +59,7 @@ from repro_torch.distributed.sharding import (column_parallel, copy_to_model, ga
                                               model_dim, model_slice, on_model,
                                               reduce_from_model, row_parallel, tp_rank, tp_size)
 from repro_torch.models.layers import Params, dense_init, draw_normal, init_device, pdtype
+from repro_torch.spans import span
 
 
 def ssm_dims(cfg):
@@ -204,43 +209,55 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_in: torch.Ten
         raise ValueError(f"chunk {chunk} must divide L={L}")
     nc = L // chunk
 
-    S = (torch.zeros((B, g, r, N, P), dtype=torch.float32, device=x.device)
-         if s0 is None else s0)
+    # every chunk at once: (B, nc, Q, ...), Q = chunk
+    x_c = x.reshape(B, nc, chunk, g, r, P)
+    dt_c = dt.reshape(B, nc, chunk, g, r)
+    bf = b_in.reshape(B, nc, chunk, g, N).float()
+    cf = c_in.reshape(B, nc, chunk, g, N).float()
+    a_bar = dt_c.float() * a                           # (B,nc,Q,g,r) ≤ 0
+    a_cum = torch.cumsum(a_bar, dim=2)
+    a_sum = a_cum[:, :, -1]                            # (B,nc,g,r)
+    xb = (x_c * dt_c[..., None]).float()
+
+    # intra-chunk quadratic (diagonal blocks); mask in log space so the
+    # anti-causal half never evaluates exp(+large) (inf·0 = NaN); the
+    # reference's -inf (ssm.py:122-125), kept as it is
     ii = torch.arange(chunk, device=x.device)
     causal = ii[:, None] >= ii[None, :]
-    ys = []
+    seg = a_cum[:, :, :, None] - a_cum[:, :, None]     # (B,nc,i,j,g,r)
+    seg = torch.where(causal[:, :, None, None], seg, -torch.inf)
+    l_mat = torch.exp(seg)
+    cb = torch.einsum("bcign,bcjgn->bcijg", cf, bf)
+    y = torch.einsum("bcijg,bcijgr,bcjgrp->bcigrp", cb, l_mat, xb)
+
+    # what each chunk adds to the state it hands on
+    decay = torch.exp(a_sum[:, :, None] - a_cum)       # (B,nc,j,g,r)
+    added = torch.einsum("bcjgn,bcjgr,bcjgrp->bcgrnp", bf, decay, xb)
+
+    # the carried state, chunk by chunk: the state each chunk is handed
+    S = (torch.zeros((B, g, r, N, P), dtype=torch.float32, device=x.device)
+         if s0 is None else s0)
+    held = []
     for ci in range(nc):
-        sl = slice(ci * chunk, (ci + 1) * chunk)
-        x_k, dt_k, b_k, c_k = x[:, sl], dt[:, sl], b_in[:, sl], c_in[:, sl]
-        a_bar = dt_k.float() * a                       # (B,Lc,g,r) ≤ 0
-        a_cum = torch.cumsum(a_bar, dim=1)
-        a_sum = a_cum[:, -1]                           # (B,g,r)
-        xb = (x_k * dt_k[..., None]).float()
+        held.append(S)
+        S = S * torch.exp(a_sum[:, ci])[..., None, None] + added[:, ci]
 
-        # intra-chunk quadratic (diagonal block); mask in log space so the
-        # anti-causal half never evaluates exp(+large) (inf·0 = NaN); the
-        # reference's -inf (ssm.py:122-125), kept as it is
-        seg = a_cum[:, :, None] - a_cum[:, None]       # (B,i,j,g,r)
-        seg = torch.where(causal[None, :, :, None, None], seg, -torch.inf)
-        l_mat = torch.exp(seg)
-        cf, bf = c_k.float(), b_k.float()
-        cb = torch.einsum("bign,bjgn->bijg", cf, bf)
-        y = torch.einsum("bijg,bijgr,bjgrp->bigrp", cb, l_mat, xb)
-
-        # inter-chunk contribution from the carried state
-        y = y + torch.einsum("bign,bgrnp,bigr->bigrp", cf, S, torch.exp(a_cum))
-
-        # state update for the next chunk
-        decay = torch.exp(a_sum[:, None] - a_cum)      # (B,j,g,r)
-        S = S * torch.exp(a_sum)[..., None, None] \
-            + torch.einsum("bjgn,bjgr,bjgrp->bgrnp", bf, decay, xb)
-        ys.append(y.to(x.dtype))
-    return torch.cat(ys, dim=1), S
+    # inter-chunk contribution from the state each chunk was handed
+    y = y + torch.einsum("bcign,bcgrnp,bcigr->bcigrp", cf, torch.stack(held, 1),
+                         torch.exp(a_cum))
+    return y.reshape(B, L, g, r, P).to(x.dtype), S
 
 
 def apply_ssm_train(p: Params, u: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence mixer (training/prefill).  u: (B, L, d_model);
-    tensor-parallel as the module docstring says."""
+    tensor-parallel as the module docstring says.  The whole mixer is the
+    span ``repro_torch.lm.ssm``, the scan ``repro_torch.lm.ssd_scan``
+    (``repro_torch.spans``: no-ops with no profiler running)."""
+    with span("repro_torch.lm.ssm"):
+        return _ssm_train(p, u, cfg)
+
+
+def _ssm_train(p: Params, u: torch.Tensor, cfg) -> torch.Tensor:
     L = u.shape[1]
     z, xbc, dt_raw = _split_proj(p, u, cfg)
     split_cols = model_dim(xbc) is not None
@@ -252,7 +269,8 @@ def apply_ssm_train(p: Params, u: torch.Tensor, cfg) -> torch.Tensor:
     xbc = F.silu(conv + p["conv_b"].to(xbc.dtype))
 
     x, b_in, c_in, dt, a, d = _rank_inputs(p, xbc, split_cols, dt_raw, cfg)
-    y, _ = ssd_scan(x, dt, a, b_in, c_in, cfg.ssd_chunk)
+    with span("repro_torch.lm.ssd_scan"):
+        y, _ = ssd_scan(x, dt, a, b_in, c_in, cfg.ssd_chunk)
     y = y + d.to(y.dtype)[None, None, :, :, None] * x
     return _mixer_out(p, y, z, cfg)
 

@@ -10,6 +10,12 @@ port runs a Python loop over the stacked leaves.
   ssm (mamba2)        : one loop, no attention, no MLP (d_ff=0)
   hybrid (hymba)      : global-attention layers between runs of
                         sliding-window layers
+  interleaved         : one loop over ``layer_types`` (granite-4.0-h),
+                        each layer a Mamba-2 or an attention mixer and an
+                        MLP, from two stacks, ``mamba_blocks`` and
+                        ``attn_blocks``, walked in that order; training and
+                        prefill only (no decode cache, no tensor-parallel
+                        step)
   vlm (llama-vision)  : a loop over periods of (self layers + 1 cross layer)
 
 Decode writes each layer's cache slot in place: the cache passed to
@@ -126,12 +132,16 @@ def _stack(trees: list) -> Params:
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, cfg, *, cross: bool = False, device: torch.device) -> Params:
+def _init_block(gen, cfg, *, cross: bool = False, kind: str = "attention",
+                device: torch.device) -> Params:
     p: Params = {"norm1": init_norm(cfg, cfg.d_model, device=device)}
     if cfg.family == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
         return p
-    p["attn"] = attn.init_attention(gen, cfg, cross=cross, device=device)
+    if kind == "mamba":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
+    else:
+        p["attn"] = attn.init_attention(gen, cfg, cross=cross, device=device)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
         p["norm_attn"] = init_norm(cfg, cfg.d_model, device=device)
@@ -144,13 +154,14 @@ def _init_block(gen, cfg, *, cross: bool = False, device: torch.device) -> Param
     return p
 
 
-def _stack_init(gen, cfg, n: int, *, device: torch.device) -> Params:
+def _stack_init(gen, cfg, n: int, *, kind: str = "attention",
+                device: torch.device) -> Params:
     """``n`` blocks, each leaf stacked over them (leading axis ``n``, 0 too)."""
     if n == 0:
-        proto = _init_block(None, cfg, device=torch.device("meta"))
+        proto = _init_block(None, cfg, kind=kind, device=torch.device("meta"))
         return tree_map(lambda a: torch.empty((0, *a.shape), dtype=a.dtype, device=device),
                         proto)
-    return _stack([_init_block(gen, cfg, device=device) for _ in range(n)])
+    return _stack([_init_block(gen, cfg, kind=kind, device=device) for _ in range(n)])
 
 
 def hymba_layer_groups(cfg) -> tuple[list[int], list[list[int]]]:
@@ -182,6 +193,10 @@ def init_model(gen: torch.Generator | None, cfg, *,
         glb, _ = hymba_layer_groups(cfg)
         params["global_blocks"] = _stack_init(gen, cfg, len(glb), device=dev)
         params["swa_blocks"] = _stack_init(gen, cfg, cfg.n_layers - len(glb), device=dev)
+    elif cfg.family == "interleaved":
+        params["mamba_blocks"] = _stack_init(gen, cfg, cfg.n_layers_of("mamba"), kind="mamba",
+                                             device=dev)
+        params["attn_blocks"] = _stack_init(gen, cfg, cfg.n_layers_of("attention"), device=dev)
     else:
         params["blocks"] = _stack_init(gen, cfg, cfg.n_layers, device=dev)
     return params
@@ -221,6 +236,20 @@ def _hybrid_block_train(bp: Params, x: torch.Tensor, cfg, positions, window: int
     x = x + 0.5 * (apply_norm(bp["norm_attn"], a, cfg) + apply_norm(bp["norm_ssm"], s, cfg))
     h = apply_norm(bp["norm2"], x, cfg)
     return x + apply_mlp(bp["mlp"], h, cfg)
+
+
+def _interleaved_block_train(bp: Params, x: torch.Tensor, cfg, positions):
+    """One layer of an interleaved stack: its mixer (Mamba-2 where the block
+    holds ``ssm``, else NoPE attention) and its MLP, each branch scaled by
+    ``residual_multiplier`` before its residual add."""
+    h = apply_norm(bp["norm1"], x, cfg)
+    if "ssm" in bp:
+        m = ssm_mod.apply_ssm_train(bp["ssm"], h, cfg)
+    else:
+        m = attn.self_attention_train(bp["attn"], h, cfg, positions=positions)
+    x = x + m * cfg.residual_multiplier
+    h = apply_norm(bp["norm2"], x, cfg)
+    return x + apply_mlp(bp["mlp"], h, cfg) * cfg.residual_multiplier
 
 
 def _cross_block_train(bp: Params, x: torch.Tensor, cfg, vis_embed):
@@ -275,6 +304,13 @@ def forward(params: Params, cfg, *, tokens: torch.Tensor | None = None,
             offset += len(run)
             if gi < len(glb):
                 x = g_body(global_blocks[gi], x)
+    elif cfg.family == "interleaved":
+        body = _maybe_remat(lambda bp, c: _interleaved_block_train(bp, c, cfg, positions),
+                            remat)
+        stacks = {"mamba": iter(_layers(params["mamba_blocks"])),
+                  "attention": iter(_layers(params["attn_blocks"]))}
+        for kind in cfg.layer_types:
+            x = body(next(stacks[kind]), x)
     elif cfg.family == "vlm":
         self_body = _maybe_remat(lambda bp, c: _dense_block_train(bp, c, cfg, positions, 0)[0],
                                  remat)
@@ -316,8 +352,15 @@ def _stacked_ssm_cache(cfg, batch: int, device) -> ssm_mod.SSMCache:
     return ssm_mod.SSMCache(*(a.new_zeros((cfg.n_layers, *a.shape)) for a in c))
 
 
+def _no_decode(cfg) -> None:
+    if cfg.family == "interleaved":
+        raise NotImplementedError(f"{cfg.name}: the interleaved family has no decode cache "
+                                  f"(training and prefill only)")
+
+
 def init_decode_cache(cfg, batch: int, max_t: int, kv_dtype: torch.dtype = torch.bfloat16,
                       *, device: str | torch.device = "cuda") -> DecodeCache:
+    _no_decode(cfg)
     dev = init_device(device)
     hd = cfg.resolved_head_dim if cfg.n_heads else 0
     if cfg.family == "ssm":
@@ -394,6 +437,7 @@ def decode_step(params: Params, cfg, cache: DecodeCache, pos: int | torch.Tensor
     ``cache`` is consumed: each layer's slot is written in place, and the
     returned cache holds the same tensors (a VLM cache gains the cross K/V
     on its first step).  ``pos`` is read on the host once per step."""
+    _no_decode(cfg)
     pos = int(pos)
     if embeds is not None:
         x = embeds.to(cdtype(cfg))

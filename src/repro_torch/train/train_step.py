@@ -198,6 +198,9 @@ def _local_batch(batch: dict, mesh) -> dict:
 
 
 def _sharded_step(cfg, opt_cfg: OptimizerConfig, train_cfg: TrainConfig, mesh, use_kernel):
+    if cfg.family == "interleaved":
+        raise NotImplementedError(f"{cfg.name}: the sharded step has no placement for the "
+                                  f"interleaved family's two stacks; train it with no mesh")
     names = axis_names(mesh)
     if names not in (("data", "model"), ("pod", "data", "model")):
         raise ValueError(f"a train mesh has axes ('data','model') or ('pod','data','model'), "

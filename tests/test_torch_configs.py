@@ -1,7 +1,10 @@
 """The LM configs and their parameter counts (ROADMAP item 18a): the port's
 ``repro_torch.configs`` and ``repro_torch.models.config`` against the JAX
 package's, field for field, and the reference's count tests mirrored.  The
-configs are shapes only: nothing is downloaded."""
+port registers one architecture more, granite-4.0-h-micro (an
+``InterleavedConfig``, held to its published widths and to a plain
+reference in ``test_torch_granite.py``); the ten stay the JAX package's.
+The configs are shapes only: nothing is downloaded."""
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -10,16 +13,17 @@ import pytest
 
 from repro import configs as J
 from repro_torch import configs as T
-from repro_torch.configs import (hymba_1_5b, llama32_vision_11b, mamba2_1_3b,
-                                 musicgen_medium, phi35_moe_42b, qwen2_1_5b, qwen2_moe_a2_7b,
-                                 qwen3_0_6b, qwen15_32b, yi_9b)
+from repro_torch.configs import (granite_4_0_h_micro, hymba_1_5b, llama32_vision_11b,
+                                 mamba2_1_3b, musicgen_medium, phi35_moe_42b, qwen2_1_5b,
+                                 qwen2_moe_a2_7b, qwen3_0_6b, qwen15_32b, yi_9b)
 from repro_torch.models.config import ModelConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_the_registry_names_the_reference_archs():
-    assert T.ARCH_NAMES == J.ARCH_NAMES and len(T.ARCH_NAMES) == 10
+    assert T.ARCH_NAMES[:10] == J.ARCH_NAMES and len(J.ARCH_NAMES) == 10
+    assert T.ARCH_NAMES[10:] == ("granite-4.0-h-micro",)
     assert {k: dataclasses.asdict(v) for k, v in T.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in J.SHAPES.items()}
     with pytest.raises(KeyError, match="unknown arch"):
@@ -53,7 +57,8 @@ def test_config_equals_the_reference_field_for_field(arch):
 
 
 ARCH_MODULES = (llama32_vision_11b, qwen15_32b, yi_9b, qwen3_0_6b, qwen2_1_5b, hymba_1_5b,
-                qwen2_moe_a2_7b, phi35_moe_42b, mamba2_1_3b, musicgen_medium)
+                qwen2_moe_a2_7b, phi35_moe_42b, mamba2_1_3b, musicgen_medium,
+                granite_4_0_h_micro)
 
 
 def test_the_registry_loads_each_arch_module():

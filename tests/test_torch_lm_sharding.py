@@ -19,11 +19,12 @@ from jax.sharding import PartitionSpec as JP
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from repro.configs import ARCH_NAMES
 from repro.configs import get_config as j_get_config
 from repro.distributed import sharding as JS
 from repro.launch import specs as JSP
 from repro.models import transformer as JT
-from repro_torch.configs import ARCH_NAMES, get_config, shapes_for
+from repro_torch.configs import get_config, shapes_for
 from repro_torch.distributed.sharding import (P, NamedSharding, batch_axes, batch_spec,
                                               constrain, decode_cache_shardings, kv_cache_spec,
                                               logical_to_spec, param_shardings, param_spec_for,

@@ -38,16 +38,20 @@ printed on lines of its own:
              at 2,048×600×128 (``.direct_launches``); times from CUDA events
              and the profiler beside the bound and the plain version's time,
              every shape's in the kernels line's ``layers``;
-6. counter_kernels — the counter-rule kernels (update and conv delta)
-             against their plain versions on the card, for each window
-             (exact, linear, imstdp): the update at serving's 8×784×100 and
-             the fc layers' batch-16 shapes (784×100, 600×128, 480×64), the
-             conv delta at the four conv shapes, depth 7 plus one depth-255
-             case each; linear and imstdp updates bit-equal, exact within
-             rtol=atol=1e-6, conv deltas within atol=1e-4, rtol=1e-5; two runs
-             bitwise; every case timed (CUDA events, the profiler, the byte
-             bound, the plain version), and kernels 1 and 3 beside kernel 5 at
-             serving's shape and kernel 6 at DCSNN conv1 (the ITP-vs-counter
+6. counter_kernels — the counter-rule kernels (update, conv delta and
+             fc delta) against their plain versions on the card, for each
+             window (exact, linear, imstdp): the update at serving's 8×784×100
+             and the fc layers' batch-16 shapes (784×100, 600×128, 480×64),
+             the conv delta at the four conv shapes, the fc delta (the fc
+             layers' batch sum, no per-lane array) at ``COUNTER_FC_CASES`` and
+             at the benchmark's 256×784×6,400, depth 7 plus one depth-255 case
+             each; linear and imstdp updates bit-equal, exact within
+             rtol=atol=1e-6, conv deltas within atol=1e-4, rtol=1e-5, fc
+             deltas bit-equal at depth 7 (exact sums) and within the conv
+             tolerance at 255; two runs bitwise; every case timed (CUDA
+             events, the profiler, the bound, the plain version), and kernels
+             1 and 3 beside kernel 5 at serving's shape, kernel 6 at DCSNN
+             conv1 and the fc delta at 256×784×6,400 (the ITP-vs-counter
              ratios);
 7. side_numerics — the paper's hardware numerics on their kernels (7-10):
              the DCSNN conv1 population (16 × 6,912 neurons, 24×24×12 at
@@ -196,11 +200,11 @@ printed on lines of its own:
              ≡ ``forward(last_logits_only=True)`` and ``decode_step``
              (logits and every cache leaf, bitwise); the launcher's
              ``--data 1 --model 1``; the dry run's flop count of the step;
-18. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 once per window,
-   kernels 7-10; a dense kernel's launches summed over serving, the fc
-   layers of the counter training runs and phases 12-14, its times at the shape
-   where most of them fall; the matrix, audit, lm_train and lm_sharded
-   phases' launches added), the
+18. the ``kernels`` JSON line (kernels 1-4, kernels 5-6 and the counter fc
+   delta once per window, kernels 7-10; a dense kernel's launches summed over
+   serving and phases 12-14, the fc delta's over the fc layers of the counter
+   training runs, each's times at the shape where most of them fall; the
+   matrix, audit, lm_train and lm_sharded phases' launches added), the
    ``nvidia-smi`` name/power-limit line, and the final ``{"ok": true, ...}``
    line.
 
@@ -239,6 +243,8 @@ REPLACES = {
        for w in COUNTER_WINDOWS},
     **{f"counter_conv_delta[{w}]": "src/repro/kernels/itp_counter/kernel.py:330"
        for w in COUNTER_WINDOWS},
+    **{f"counter_fc_delta[{w}]": "none: the fc layers' batch sum without kernel 5's "
+       "per-lane array" for w in COUNTER_WINDOWS},
     "lif_update": "src/repro/kernels/lif/kernel.py:37",
     "llsmu_multiply": "src/repro/kernels/llsmu/kernel.py:66",
     "po2_encode": "src/repro/kernels/po2_quant/kernel.py:69",
@@ -279,6 +285,9 @@ NET_LAYERS = {"6layer-dcsnn": ("DCSNN conv1", "DCSNN conv2", "DCSNN fc"),
 COUNTER_FC_CASES = {"serving": (8, 784, 100), "2layer-snn fc": (16, 784, 100),
                     "DCSNN fc": (16, 600, 128), "CSNN fc": (16, 480, 64),
                     "engine": (8, 256, 256), "sharded": (1, 784, 100)}
+# the counter fc delta (the batch as lanes, summed in the kernel): those
+# shapes and the benchmark's snn6400-train-exact-b256 layer
+COUNTER_SUM_CASES = {**COUNTER_FC_CASES, "snn6400 fc b256": (256, 784, 6400)}
 COUNTER_DEPTH = 7
 COUNTER_DEEP = 255                      # the uint8 counter word's largest depth
 WINDOW_TOL = dict(rtol=1e-6, atol=1e-6)  # the reference's tolerance for the exp window
@@ -911,8 +920,10 @@ def _timed(name: str, what: str, kern, plain, bound, kernel_name: str, *,
 
 
 def phase_counter_kernels(device) -> dict:
-    """Kernels 5-6 against their plain versions for every window: kernel 5 at
-    serving's and the fc layers' shapes, kernel 6 at the four conv shapes,
+    """Kernels 5-6 and the fc delta against their plain versions for every
+    window: kernel 5 at serving's and the fc layers' shapes, kernel 6 at the
+    four conv shapes, the fc delta at ``COUNTER_SUM_CASES`` (also against
+    kernel 5's lanes summed in float64, the path it replaced: bit-equal),
     depth 7 and one depth-255 case each; run == run bitwise; every case
     timed (the kernels line reports serving's shape and DCSNN conv1 at depth
     7); beside them kernels 1 and 3 at equal shapes."""
@@ -988,6 +999,68 @@ def phase_counter_kernels(device) -> dict:
                          "itp_stdp_kernel")
             _ratio_line("kernel 5 (exact) / kernel 1",
                         report["counter_stdp_update[exact]"]["cases"]["serving"], itp)
+
+    summed = [(case, shape, COUNTER_DEPTH) for case, shape in COUNTER_SUM_CASES.items()]
+    summed.append(("2layer-snn fc", COUNTER_FC_CASES["2layer-snn fc"], COUNTER_DEEP))
+    for case, (lanes, n_pre, n_post), depth in summed:
+        pre_s, post_s = spikes((lanes, n_pre), 0.2), spikes((lanes, n_post), 0.2)
+        pre_t, post_t = counters((lanes, n_pre), depth), counters((lanes, n_post), depth)
+        lut = counter_lut(p, depth, device)
+        what = f"{case} {lanes}x{n_pre}x{n_post} depth={depth}"
+        for window in COUNTER_WINDOWS:
+            name = f"counter_fc_delta[{window}]"
+            kw = dict(depth=depth, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                      tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+            args = (pre_s, post_s, pre_t, post_t, lut)
+            out = NK.counter_fc_delta(*args, **kw)
+            again = NK.counter_fc_delta(*args, **kw)
+            plain = NR.counter_fc_delta_ref(*args[:4], lut=lut, **kw)
+
+            def lanes_path():   # the path it replaced: kernel 5 per lane, summed
+                zero = torch.zeros((lanes, n_pre, n_post), device=device)
+                dw = NK.counter_stdp_update(zero, *args, **kw, eta=1.0, w_min=-math.inf,
+                                            w_max=math.inf)
+                return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+
+            replaced = lanes_path()
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item()
+            bitwise = torch.equal(out, plain)
+            close = bitwise or ((window == "exact" or depth == COUNTER_DEEP)
+                                and torch.allclose(out, plain, **CONV_TOL))
+            same = torch.equal(out, replaced)
+            ok = (close and torch.equal(out, again) and bool(torch.isfinite(out).all())
+                  and (same or depth == COUNTER_DEEP))
+            _phase("counter_kernels", f"{name} {what}: max|err|={err:.3g} (bit-equal "
+                   f"{bitwise}), == kernel 5's lanes summed {same}, run-to-run "
+                   f"{torch.equal(out, again)} -> {'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"counter fc delta mismatch: {name} at {what}")
+            rep = report.setdefault(name, {"max_abs_err": 0.0})
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if depth != COUNTER_DEPTH:
+                continue
+            t = _timed(name, what, lambda: NK.counter_fc_delta(*args, **kw),
+                       lambda: NR.counter_fc_delta_ref(*args[:4], lut=lut, **kw),
+                       _conv_bound(lanes, n_pre, n_post, depth, True, window),
+                       "counter_fc_delta_kernel")
+            t["replaced_ms"] = _time_ms(lanes_path, reps=10, inner=2)
+            _phase("counter_kernels", f"{name} {what}: the per-lane path it replaced (zero "
+                   f"fill, kernel 5, float64 cast and sum) {t['replaced_ms']:.5f} ms/call")
+            rep.setdefault("cases", {})[case] = dict(t, shape=what)
+        if case == "snn6400 fc b256":
+            # ITP against the counter datapath at the benchmark's layer: kernel
+            # 3 on the same spikes, fed random history words
+            words = [torch.randint(0, 256, t.shape, generator=gen, dtype=torch.uint8)
+                     .to(device) for t in (pre_t, post_t)]
+            po2 = po2_vectors(p, depth, device=device)
+            itp = _timed("itp_stdp_conv_delta_packed", f"{what} (beside the fc delta)",
+                         lambda: CK.itp_stdp_conv_delta_packed(pre_s, post_s, *words, *po2,
+                                                               depth=depth),
+                         None, _conv_bound(lanes, n_pre, n_post, depth, True),
+                         "conv_delta_")
+            _ratio_line("counter fc delta (exact) / kernel 3",
+                        report["counter_fc_delta[exact]"]["cases"][case], itp)
 
     conv = [(layer, shape, COUNTER_DEPTH) for layer, shape in CONV_CASES.items()]
     conv.append(("DCSNN conv1", CONV_CASES["DCSNN conv1"], COUNTER_DEEP))
@@ -1310,7 +1383,8 @@ def _train_counters():
             "itp_stdp_conv_delta_packed": CK.itp_stdp_conv_delta_packed,
             "itp_stdp_conv_delta": CK.itp_stdp_conv_delta,
             "counter_stdp_update": NK.counter_stdp_update,
-            "counter_conv_delta": NK.counter_conv_delta}
+            "counter_conv_delta": NK.counter_conv_delta,
+            "counter_fc_delta": NK.counter_fc_delta}
 
 
 def _run_batches(cfg, batches, batch, device):
@@ -1332,7 +1406,7 @@ def _run_batches(cfg, batches, batch, device):
 
 def _net_kernels(cfg) -> tuple[str, str | None]:
     """(conv kernel, fc kernel) a net's training launches: the counter
-    kernels for the counter rules (kernel 5 per lane in the fc layer);
+    kernels for the counter rules (the fc delta's batch sum in the fc layer);
     kernel 4 on gathered rows and no dense kernel on ``sparse``; otherwise
     the conv kernel for both, the fc layer's batch sum as its contraction
     over the batch: kernel 4 on a Rank1Rule's magnitude planes (mstdp),
@@ -1340,7 +1414,7 @@ def _net_kernels(cfg) -> tuple[str, str | None]:
     from repro_torch.plasticity import Rank1Rule
 
     if cfg.rule in COUNTER_WINDOWS:
-        return "counter_conv_delta", "counter_stdp_update"
+        return "counter_conv_delta", "counter_fc_delta"
     if cfg.backend == "sparse":
         return "itp_stdp_conv_delta", None
     if isinstance(cfg.learning_rule(), Rank1Rule):
@@ -1629,7 +1703,7 @@ def phase_matrix(device) -> dict:
 def _audit_kernel_op(rule: str, backend: str, kind: str) -> str | None:
     """The one kernel operator a step of an audit cell holds: the history
     rules' packed engine update (kernel 1) or conv delta (kernel 3, also the
-    fc layers' batch sum), the counter rules' (5, 6), mstdp's on magnitude
+    fc layers' batch sum), the counter rules' (5, 6, the fc delta), mstdp's on magnitude
     planes (2, 4); the sparse conv delta runs kernel 4 on the gathered rows;
     the reference and fused_interpret cells none."""
     conv = kind in ("conv2d", "conv1d")
@@ -1638,7 +1712,8 @@ def _audit_kernel_op(rule: str, backend: str, kind: str) -> str | None:
     if backend != "fused":
         return None
     if rule in COUNTER_WINDOWS:
-        return "counter_conv_delta" if conv else "counter_stdp_update"
+        return {"engine": "counter_stdp_update", "fc": "counter_fc_delta"}.get(
+            kind, "counter_conv_delta")
     base = "itp_stdp_update" if kind == "engine" else "itp_stdp_conv_delta"
     return base + "_packed" if rule in ("itp", "itp_nocomp") else base
 
@@ -3379,11 +3454,12 @@ def phase_lm_train(device, smi: str) -> dict:
 
 
 def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> dict:
-    """A dense kernel launches in serving, once per step in every fc layer of
-    the counter training runs (the batch as lanes), and in the engine paths
-    (``engine``: launches by kernel and shape): its launches by shape,
-    summed.  Each dense kernel's report takes its times at the shape where
-    most of its launches fall.  Returns the summed launches."""
+    """A dense kernel launches in serving and in the engine paths
+    (``engine``: launches by kernel and shape), the counter fc delta once per
+    step in every fc layer of the counter training runs: their launches by
+    shape, summed.  Each report takes its times at the shape where most of
+    its launches fall (serving's where only the matrix and audit phases
+    launch it).  Returns the summed launches."""
     fc_case = {"6layer-dcsnn": "DCSNN fc", "5layer-csnn": "CSNN fc",
                "2layer-snn": "2layer-snn fc"}
     dense = {name: {"serving": n} for name, n in serve["launches"].items() if n}
@@ -3392,14 +3468,18 @@ def _dense_launches(serve: dict, train: dict, kernels: dict, engine: dict) -> di
             dense.setdefault(name, {})[shape] = dense.get(name, {}).get(shape, 0) + n
     for run, r in train.items():   # the other rules' fc layers run kernels 3-4
         net, _, rule = run.partition(" ")
-        n = r["launches"].get("counter_stdp_update", 0)
+        n = r["launches"].get("counter_fc_delta", 0)
         if n:
-            by_shape = dense.setdefault(f"counter_stdp_update[{rule}]", {})
+            by_shape = dense.setdefault(f"counter_fc_delta[{rule}]", {})
             by_shape[fc_case[net]] = by_shape.get(fc_case[net], 0) + n
     for name, by_shape in dense.items():
         most = max(by_shape, key=by_shape.get)
         kernels[name].update(kernels[name]["cases"][most], launches_by_shape=by_shape)
         _phase("kernels", f"{name}: launches {by_shape}; timed at {most}")
+    for name, k in kernels.items():
+        if "cases" in k and name not in dense:
+            k.update(k["cases"]["serving"])
+            _phase("kernels", f"{name}: no launch on the main paths; timed at serving")
     return {name: sum(by_shape.values()) for name, by_shape in dense.items()}
 
 
@@ -3482,10 +3562,10 @@ def main() -> int:
         launches[f"counter_conv_delta[{window}]"] = train[run]["launches"]["counter_conv_delta"]
     launches.update(side["launches"])   # the neuron datapath and ITP-AdamW runs
     for name, n in matrix.items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
         kernels[name].setdefault("launches_by_shape", {})["matrix"] = n
     for name, n in audit["launches"].items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
         kernels[name].setdefault("launches_by_shape", {})["audit"] = n
     for name, n in lm_train["full"]["launches"].items():   # ITP-AdamW at full width
         launches[name] += n

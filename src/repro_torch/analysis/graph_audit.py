@@ -81,11 +81,15 @@ FLOAT64_ALLOWLIST: dict[tuple[str, str], str] = {
         "the plain conv deltas (and the reference backend's fc delta) sum the "
         "{0,1}-gated float32 terms exactly in float64 and round once, as the "
         "conv kernels do, so the two agree bit for bit",
+    ("kernels/itp_counter/ref.py", "counter_fc_delta_ref"):
+        "the plain counter fc delta (fused_interpret, and the counter fc kernel's "
+        "CPU version) sums its per-lane array over the batch exactly in float64 and "
+        "rounds once, as the kernel's float64 accumulators do, so the two agree bit "
+        "for bit",
     ("plasticity/base.py", "lane_sum"):
-        "the fc deltas that keep a per-sample array, the counter rules' on the "
-        "kernel backends (kernel 5 per lane) and every rule's on sparse, sum it over "
-        "the batch exactly in float64 and round once, so they give the bits of the "
-        "other backends' gated contraction",
+        "the sparse backend's fc delta sums its per-sample array over the batch "
+        "exactly in float64 and rounds once, so it gives the bits of the other "
+        "backends' gated contraction",
 }
 
 _PACKAGE = Path(repro_torch.__file__).resolve().parent

@@ -4,7 +4,10 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/itp_counter/kernel.py:
 //   counter_stdp_update (dense: clip(w + eta * dw) over the synapse matrix)
-//   counter_conv_delta  (im2col conv: the raw (K, C) delta summed over M).
+//   counter_conv_delta  (im2col conv: the raw (K, C) delta summed over M);
+// and adds one that replaces no TPU kernel:
+//   counter_fc_delta    (an SNN fc layer: the raw (n_pre, n_post) delta of
+//                        (B, n) words and spikes, summed over the B lanes).
 // A neuron's timing state is one uint8 last-spike counter word: t steps since
 // its last spike, saturated at depth; the delay is live while t <= depth-1.
 // The window of a delay t (one per side, LTP from the pre counter, LTD from
@@ -61,10 +64,38 @@
 // large depth (255 with tau = 4 spans ~90 binades) the fixed order keeps the
 // sum equal run to run and within the reference's tolerance of the plain
 // version.  Bound: latency, as itp_stdp_conv.cu.
+//
+// counter_fc_delta.  It exists because the per-lane array was the cost: the
+// fc layers' batch sum used to run kernel 5 over a zero-filled (B, n_pre,
+// n_post) array and sum it in float64 outside (at 256 x 784 x 6,400 a 5.1 GB
+// array, its fill, a 10.3 GB float64 cast and a reduction, three quarters of
+// the step).  Here each thread keeps one float64 accumulator for each of its
+// synapses, walks the lanes in ascending order, evaluates both windows of
+// every (lane, i, j) pair through window<W> and CounterWindow (the asm
+// barrier, the same staged words and spikes as kernel 5; both windows whether
+// or not the pair gate is open), adds the XOR pair gate's float32 term, and
+// rounds once into the (n_pre, n_post) output: one launch, no per-lane array,
+// no scratch.  The per-pair windows stay, so the comparison with ITP's
+// register read is still the paper's per-pair datapath.  Bound: the per-pair
+// double exps and float<->double conversions and the float64 adds (two window
+// evaluations and one add a pair), not bytes: the words and spikes of all
+// lanes are 5 bytes a neuron and stay in L2.  Design: a block owns a tile of
+// FC_ROWS x FC_COLS synapses (a warp spans 32 columns, each thread FC_RPT rows
+// of one column); the tile's pre and post sides are staged into shared memory
+// FC_LANES lanes at a time, double-buffered, so one block sync a chunk
+// separates the staging of the next chunk from the reads of this one.  The
+// tiles alone give thousands of blocks at the main path's shape, so the lanes
+// are not split across blocks; at the batch-16 fc shapes a call is a few
+// microseconds of pair work.  Every term is a float32 window value or 0; at
+// depth 7 the float64 sums are exact (bit-equal to the plain version's sum of
+// kernel 5's lanes); at depth 255 the fixed lane order keeps the sum equal run
+// to run and within the reference's tolerance.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "dense_update.cuh"
 #include "gated_sum.cuh"
@@ -187,6 +218,93 @@ counter_conv_delta_kernel(float* __restrict__ out, double* __restrict__ partial,
                   mag, smem);
 }
 
+constexpr int FC_THREADS = 128;
+constexpr int FC_COLS = 32;                              // a warp's columns
+constexpr int FC_RPT = 4;                                // rows a thread
+constexpr int FC_ROWS = FC_THREADS / FC_COLS * FC_RPT;   // rows a tile
+constexpr int FC_LANES = 16;                             // lanes a staged chunk
+
+// The XOR pair gate's float32 term of one synapse, as dense::update forms it
+// (ltp_en where the post neuron fired alone, ltd_en where the pre neuron did),
+// both windows evaluated whatever the gate.
+template <int W>
+__device__ __forceinline__ float pair_dw(const CounterWindow<W>& mag, dense::Side a,
+                                         dense::Side c) {
+  const float ltp = mag.ltp_mag(a.v), ltd = mag.ltd_mag(c.v);
+  const bool pre_s = a.spike != 0.0f, post_s = c.spike != 0.0f;
+  const bool fire_xor = pre_s != post_s;
+  const float ltp_en = (fire_xor && post_s) ? 1.0f : 0.0f;
+  const float ltd_en = (fire_xor && pre_s) ? 1.0f : 0.0f;
+  return __fsub_rn(__fmul_rn(ltp_en, ltp), __fmul_rn(ltd_en, ltd));
+}
+
+template <int W>
+__global__ void __launch_bounds__(FC_THREADS, 8)
+counter_fc_delta_kernel(float* __restrict__ out, const float* __restrict__ pre_spike,
+                        const float* __restrict__ post_spike,
+                        const uint8_t* __restrict__ pre_words,
+                        const uint8_t* __restrict__ post_words,
+                        const float* __restrict__ lut, Side ltp, Side ltd, int depth,
+                        int lanes, int n_pre, int n_post, int col_blocks) {
+  __shared__ dense::Side s_pre[2][FC_LANES][FC_ROWS];
+  __shared__ dense::Side s_post[2][FC_LANES][FC_COLS];
+  __shared__ float s_lut[W == IMSTDP ? 2 * MAX_DEPTH : 1];
+  if constexpr (W == IMSTDP) {   // read only after the first sync
+    for (int i = threadIdx.x; i < 2 * depth; i += FC_THREADS) s_lut[i] = lut[i];
+    ltp.lut = s_lut;
+    ltd.lut = s_lut + depth;
+  }
+  const CounterWindow<W> mag{pre_spike, post_spike, pre_words, post_words, ltp, ltd,
+                             n_pre, n_post, depth};
+  const int cb = blockIdx.x % col_blocks, rb = blockIdx.x / col_blocks;
+  const int i0 = rb * FC_ROWS, j0 = cb * FC_COLS;
+  const int nr = min(FC_ROWS, n_pre - i0), nc = min(FC_COLS, n_post - j0);
+  const int col = threadIdx.x % FC_COLS, row = threadIdx.x / FC_COLS * FC_RPT;
+
+  // a chunk's sides; a neuron past the tile's edge stages counter 0, no spike,
+  // so every read of the table stays inside it
+  auto stage = [&](int buf, int l0) {
+    const int nl = min(FC_LANES, lanes - l0);
+    for (int k = threadIdx.x; k < nl * FC_ROWS; k += FC_THREADS) {
+      const int l = k / FC_ROWS, i = k - l * FC_ROWS;
+      s_pre[buf][l][i] = i < nr ? mag.pre(l0 + l, i0 + i) : dense::Side{0.0f, 0.0f};
+    }
+    for (int k = threadIdx.x; k < nl * FC_COLS; k += FC_THREADS) {
+      const int l = k / FC_COLS, j = k - l * FC_COLS;
+      s_post[buf][l][j] = j < nc ? mag.post(l0 + l, j0 + j) : dense::Side{0.0f, 0.0f};
+    }
+  };
+
+  double acc[FC_RPT];
+#pragma unroll
+  for (int q = 0; q < FC_RPT; ++q) acc[q] = 0.0;
+  const int chunks = (lanes + FC_LANES - 1) / FC_LANES;
+  if (chunks > 0) stage(0, 0);
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    // the other buffer was last read before the previous chunk's sync
+    if (ch + 1 < chunks) stage(buf ^ 1, (ch + 1) * FC_LANES);
+    const int nl = min(FC_LANES, lanes - ch * FC_LANES);
+    for (int l = 0; l < nl; ++l) {   // ascending lanes: a fixed order of the adds
+      const dense::Side c = s_post[buf][l][col];
+#pragma unroll
+      for (int q = 0; q < FC_RPT; ++q) {
+        acc[q] += static_cast<double>(pair_dw(mag, s_pre[buf][l][row + q], c));
+      }
+    }
+    __syncthreads();
+  }
+  if (col < nc) {
+#pragma unroll
+    for (int q = 0; q < FC_RPT; ++q) {
+      if (row + q < nr) {
+        out[static_cast<size_t>(i0 + row + q) * n_post + j0 + col] = __double2float_rn(acc[q]);
+      }
+    }
+  }
+}
+
 Side side(float amp, float tau) { return Side{amp, tau, 2.0f * tau, nullptr}; }
 
 template <int W>
@@ -210,6 +328,24 @@ int launch_conv(float* out, double* partial, long scratch, const float* pre, con
                        M, K, C, 1, 1, W == IMSTDP ? depth : 0, device, stream, scratch,
                        nullptr, out, partial, pre, post, pre_words, post_words, lut, ltp,
                        ltd, depth);
+}
+
+template <int W>
+int launch_fc(float* out, const float* pre_spike, const float* post_spike,
+              const uint8_t* pre_words, const uint8_t* post_words, const float* lut, int lanes,
+              int n_pre, int n_post, int depth, Side ltp, Side ltd, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_blocks = (n_pre + FC_ROWS - 1) / FC_ROWS;
+  const int col_blocks = (n_post + FC_COLS - 1) / FC_COLS;
+  if (static_cast<long>(row_blocks) * col_blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  counter_fc_delta_kernel<W><<<row_blocks * col_blocks, FC_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      out, pre_spike, post_spike, pre_words, post_words, lut, ltp, ltd, depth, lanes, n_pre,
+      n_post, col_blocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int W>
@@ -296,6 +432,33 @@ int counter_conv_delta(float* out, double* partial, long scratch, const float* p
     default:
       return launch_conv<IMSTDP>(out, partial, scratch, pre, post, pre_words, post_words, lut,
                                  M, K, C, depth, ltp, ltd, device, stream);
+  }
+}
+
+// pre_spike: (lanes, n_pre) f32, post_spike: (lanes, n_post) f32, words:
+// (lanes, n) uint8; lut and window as above; out: (n_pre, n_post) f32, the
+// raw delta summed over the lanes (zeros at lanes = 0).  Returns the
+// cudaError_t of the launch (0 = success); an empty out launches nothing.
+int counter_fc_delta(float* out, const float* pre_spike, const float* post_spike,
+                     const uint8_t* pre_words, const uint8_t* post_words, const float* lut,
+                     int lanes, int n_pre, int n_post, int depth, int window, float a_plus,
+                     float a_minus, float tau_plus, float tau_minus, int device,
+                     void* stream) {
+  if (lanes < 0 || depth < 1 || depth > MAX_DEPTH || window < EXACT || window > IMSTDP) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pre <= 0 || n_post <= 0) return 0;
+  const Side ltp = side(a_plus, tau_plus), ltd = side(a_minus, tau_minus);
+  switch (window) {
+    case EXACT:
+      return launch_fc<EXACT>(out, pre_spike, post_spike, pre_words, post_words, lut, lanes,
+                              n_pre, n_post, depth, ltp, ltd, device, stream);
+    case LINEAR:
+      return launch_fc<LINEAR>(out, pre_spike, post_spike, pre_words, post_words, lut, lanes,
+                               n_pre, n_post, depth, ltp, ltd, device, stream);
+    default:
+      return launch_fc<IMSTDP>(out, pre_spike, post_spike, pre_words, post_words, lut, lanes,
+                               n_pre, n_post, depth, ltp, ltd, device, stream);
   }
 }
 

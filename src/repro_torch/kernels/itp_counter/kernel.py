@@ -3,8 +3,11 @@
 Port of the Pallas kernels in ``repro/kernels/itp_counter/kernel.py``:
 ``counter_stdp_update`` (the dense clipped update, window evaluated per
 synapse) and ``counter_conv_delta`` (the im2col conv delta, the one-launch
-cooperative float64 contraction of ``csrc/gated_sum.cuh``).  See the source for the
-design and its bound.
+cooperative float64 contraction of ``csrc/gated_sum.cuh``); and
+``counter_fc_delta``, which ports no TPU kernel: an SNN fc layer's delta,
+each pair's windows evaluated as the dense update evaluates them and summed
+over the batch lanes in float64 inside the kernel, with no per-lane array.
+See the source for the design and its bound.
 
 Each wrapper calls its registered operator (``torch.ops.repro_torch.*``,
 ``kernels/_ops.py``): given CPU tensors it runs the kernel's plain version
@@ -21,7 +24,9 @@ Shapes: the dense update takes optional leading lane axes, one independent
 engine per lane, all in one launch: ``w`` ``(*lanes, n_pre, n_post)``
 float32, spikes ``(*lanes, n)`` (read as float32), counter words
 ``(*lanes, n)`` uint8.  The conv delta takes ``(M, K)`` / ``(M, C)`` spikes
-and uint8 words and returns the raw ``(K, C)`` float32 delta summed over M.
+and uint8 words and returns the raw ``(K, C)`` float32 delta summed over M;
+the fc delta takes the same operands with the batch as M, ``(B, n_pre)`` /
+``(B, n_post)``, and returns the raw ``(n_pre, n_post)`` delta summed over B.
 ``lut`` is the ``(2, depth)`` float32 window table (rows LTP, LTD) that the
 imstdp window reads; ``1 <= depth <= 255``.
 """
@@ -33,7 +38,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build, _ops
-from repro_torch.kernels.itp_counter.ref import counter_conv_delta_ref, counter_stdp_update_ref
+from repro_torch.kernels.itp_counter.ref import (counter_conv_delta_ref, counter_fc_delta_ref,
+                                                 counter_stdp_update_ref)
 
 WINDOW_CODES = {"exact": 0, "linear": 1, "imstdp": 2}
 MAX_DEPTH = 255
@@ -42,6 +48,8 @@ _UPDATE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float
                     + [ctypes.c_int, ctypes.c_void_p])
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_long] + [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+_FC_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
+                + [ctypes.c_int, ctypes.c_void_p])
 
 
 def counter_delays(words: torch.Tensor, depth: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -61,6 +69,8 @@ def _lib() -> ctypes.CDLL:
     lib.counter_stdp_update.restype = ctypes.c_int
     lib.counter_conv_delta.argtypes = _CONV_ARGTYPES
     lib.counter_conv_delta.restype = ctypes.c_int
+    lib.counter_fc_delta.argtypes = _FC_ARGTYPES
+    lib.counter_fc_delta.restype = ctypes.c_int
     lib.counter_conv_scratch.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_long)]
     lib.counter_conv_scratch.restype = ctypes.c_int
     lib.counter_error_string.argtypes = [ctypes.c_int]
@@ -83,12 +93,12 @@ def _update_operands(w, pre_spike, post_spike, pre_words, post_words, lut, *,
     return args, want
 
 
-def _conv_operands(pre_patches, post_spikes, pre_words, post_words, lut, *,
-                   depth) -> tuple[dict, dict]:
+def _conv_operands(pre_patches, post_spikes, pre_words, post_words, lut, *, depth,
+                   symbol="counter_conv_delta") -> tuple[dict, dict]:
     """The conv delta's operands and their expected shapes: ``(M, K)``
-    patches and ``(M, C)`` spikes."""
+    patches and ``(M, C)`` spikes (the fc delta's too, the batch as M)."""
     if pre_patches.dim() != 2 or post_spikes.dim() != 2:
-        raise ValueError(f"counter_conv_delta: spikes must be (M, K) and (M, C), got "
+        raise ValueError(f"{symbol}: spikes must be (M, K) and (M, C), got "
                          f"{tuple(pre_patches.shape)} and {tuple(post_spikes.shape)}")
     (m, k), c = pre_patches.shape, post_spikes.shape[1]
     args = {"post_spikes": post_spikes, "pre_words": pre_words, "post_words": post_words,
@@ -197,6 +207,30 @@ def _cuda_conv(pre_patches, post_spikes, pre_words, post_words, lut, *, depth, w
     return out
 
 
+def _cuda_fc(pre_spike, post_spike, pre_words, post_words, lut, *, depth, window, a_plus,
+             a_minus, tau_plus, tau_minus):
+    symbol = "counter_fc_delta"
+    args, want = _conv_operands(pre_spike, post_spike, pre_words, post_words, lut,
+                                depth=depth, symbol=symbol)
+    dev = pre_spike.device
+    _check(symbol, args, want, depth=depth, window=window, dev=dev)
+    (lanes, n_pre), n_post = pre_spike.shape, post_spike.shape[1]
+    pre = pre_spike.to(torch.float32).contiguous()
+    post = post_spike.to(torch.float32).contiguous()
+    pre_words, post_words = pre_words.contiguous(), post_words.contiguous()
+    lut = lut.contiguous()
+    out = torch.empty((n_pre, n_post), dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.counter_fc_delta(
+        out.data_ptr(), pre.data_ptr(), post.data_ptr(), pre_words.data_ptr(),
+        post_words.data_ptr(), lut.data_ptr(), lanes, n_pre, n_post, depth,
+        WINDOW_CODES[window], a_plus, a_minus, tau_plus, tau_minus, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, symbol, rc)
+    counter_fc_delta.launches += 1
+    return out
+
+
 def _fake_update(w, pre_spike, post_spike, pre_words, post_words, lut, *, depth, window,
                  **kw):
     _check("counter_stdp_update", *_update_operands(w, pre_spike, post_spike, pre_words,
@@ -215,6 +249,16 @@ def _fake_conv(pre_patches, post_spikes, pre_words, post_words, lut, *, depth, w
                                  dtype=torch.float32)
 
 
+def _fake_fc(pre_spike, post_spike, pre_words, post_words, lut, *, depth, window, **kw):
+    """The raw ``(n_pre, n_post)`` float32 delta of ``(B, n_pre)`` and ``(B, n_post)``
+    spikes."""
+    _check("counter_fc_delta", *_conv_operands(pre_spike, post_spike, pre_words, post_words,
+                                               lut, depth=depth, symbol="counter_fc_delta"),
+           depth=depth, window=window)
+    return pre_spike.new_empty((pre_spike.shape[1], post_spike.shape[1]),
+                               dtype=torch.float32)
+
+
 def _cpu_update(w, pre_spike, post_spike, pre_words, post_words, lut, **kw):
     return counter_stdp_update_ref(w, pre_spike, post_spike, pre_words, post_words,
                                    lut=lut, **kw).contiguous()
@@ -223,6 +267,11 @@ def _cpu_update(w, pre_spike, post_spike, pre_words, post_words, lut, **kw):
 def _cpu_conv(pre_patches, post_spikes, pre_words, post_words, lut, **kw):
     return counter_conv_delta_ref(pre_patches, post_spikes, pre_words, post_words,
                                   lut=lut, **kw).contiguous()
+
+
+def _cpu_fc(pre_spike, post_spike, pre_words, post_words, lut, **kw):
+    return counter_fc_delta_ref(pre_spike, post_spike, pre_words, post_words, lut=lut,
+                                **kw).contiguous()
 
 
 _UPDATE = _ops.define(
@@ -234,6 +283,10 @@ _CONV = _ops.define(
     "counter_conv_delta(Tensor pre_patches, Tensor post_spikes, Tensor pre_words, "
     f"Tensor post_words, Tensor lut, *, {_WINDOW_ARGS}) -> Tensor",
     cpu=_cpu_conv, cuda=_cuda_conv, fake=_fake_conv)
+_FC = _ops.define(
+    "counter_fc_delta(Tensor pre_spike, Tensor post_spike, Tensor pre_words, "
+    f"Tensor post_words, Tensor lut, *, {_WINDOW_ARGS}) -> Tensor",
+    cpu=_cpu_fc, cuda=_cuda_fc, fake=_fake_fc)
 
 
 def counter_stdp_update(w: torch.Tensor,
@@ -278,5 +331,24 @@ def counter_conv_delta(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
                  tau_minus=tau_minus)
 
 
+def counter_fc_delta(pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                     pre_words: torch.Tensor, post_words: torch.Tensor,
+                     lut: torch.Tensor,
+                     *,
+                     depth: int,
+                     window: str,
+                     a_plus: float,
+                     a_minus: float,
+                     tau_plus: float,
+                     tau_minus: float) -> torch.Tensor:
+    """Raw ``(n_pre, n_post)`` fc delta from ``(B, n)`` spikes and counter
+    words: each lane's per-pair windows and XOR pair gate, as the dense update
+    forms them, summed over the B lanes in float64 and rounded once."""
+    _ops.check_device("counter_fc_delta", pre_spike)
+    return _FC(pre_spike, post_spike, pre_words, post_words, lut, depth=depth, window=window,
+               a_plus=a_plus, a_minus=a_minus, tau_plus=tau_plus, tau_minus=tau_minus)
+
+
 counter_stdp_update.launches = 0
 counter_conv_delta.launches = 0
+counter_fc_delta.launches = 0

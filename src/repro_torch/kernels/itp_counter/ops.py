@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.stdp import STDPParams
-from repro_torch.kernels.itp_counter.kernel import counter_conv_delta, counter_stdp_update
-from repro_torch.kernels.itp_counter.ref import (counter_conv_delta_ref,
+from repro_torch.kernels.itp_counter.kernel import (counter_conv_delta, counter_fc_delta,
+                                                    counter_stdp_update)
+from repro_torch.kernels.itp_counter.ref import (counter_conv_delta_ref, counter_fc_delta_ref,
                                                  counter_stdp_update_ref, window_lut)
 
 # one uint8 word per neuron: the saturating counter must fit the word
@@ -111,12 +112,36 @@ def conv_counter_synapse_delta(pre_patches: torch.Tensor, post_spikes: torch.Ten
     im2col layout by ``itp_stdp_conv.ops.im2col_words_2d/1d`` (the window
     read commutes with the gather).  Callers apply the eta / (B·P)
     normalisation, clip and quantisation."""
+    return _summed_delta(counter_conv_delta, counter_conv_delta_ref, pre_patches,
+                         post_spikes, pre_words, post_words, params, depth=depth,
+                         window=window, use_kernel=use_kernel, interpret=interpret, lut=lut)
+
+
+def fc_counter_synapse_delta(pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                             pre_words: torch.Tensor, post_words: torch.Tensor,
+                             params: STDPParams,
+                             *,
+                             depth: int,
+                             window: str,
+                             use_kernel: bool = True,
+                             interpret: bool = False,
+                             lut: torch.Tensor | None = None) -> torch.Tensor:
+    """Raw ``(n_pre, n_post)`` fc-layer delta from ``(B, n)`` spikes and
+    counter words: :func:`counter_synapse_delta`'s per-pair lanes summed over
+    the batch in float64 and rounded once, inside one kernel launch with no
+    per-lane array (the plain version builds the array and sums it)."""
+    return _summed_delta(counter_fc_delta, counter_fc_delta_ref, pre_spike, post_spike,
+                         pre_words, post_words, params, depth=depth, window=window,
+                         use_kernel=use_kernel, interpret=interpret, lut=lut)
+
+
+def _summed_delta(kernel, plain, pre, post, pre_words, post_words, params, *, depth,
+                  window, use_kernel, interpret, lut):
+    """A summed delta (conv or fc) on its kernel or its plain version."""
     _check_depth(depth)
     if lut is None:
-        lut = counter_lut(params, depth, pre_patches.device)
+        lut = counter_lut(params, depth, pre.device)
     kw = _window_kw(params, depth, window)
     if use_kernel and not interpret:
-        return counter_conv_delta(pre_patches, post_spikes, pre_words, post_words, lut,
-                                  **kw)
-    return counter_conv_delta_ref(pre_patches, post_spikes, pre_words, post_words,
-                                  lut=lut, **kw)
+        return kernel(pre, post, pre_words, post_words, lut, **kw)
+    return plain(pre, post, pre_words, post_words, lut=lut, **kw)

@@ -28,7 +28,8 @@ move the last bit of some entries (ROADMAP queue 3).
 
 Shapes: the dense update takes optional leading lane axes, ``w``
 ``(*lanes, n_pre, n_post)``, spikes and counters ``(*lanes, n)``; the conv
-delta takes ``(M, K)`` / ``(M, C)`` im2col spikes and counters.  ``lut`` is
+delta takes ``(M, K)`` / ``(M, C)`` im2col spikes and counters, the fc delta
+``(B, n_pre)`` / ``(B, n_post)``.  ``lut`` is
 the ``(2, depth)`` float32 table of :func:`window_lut` rows (LTP, LTD) that
 the imstdp window reads; when omitted it is built here.
 """
@@ -145,3 +146,26 @@ def counter_conv_delta_ref(pre_patches: torch.Tensor, post_spikes: torch.Tensor,
                            lut=lut)
     return gated_contraction(pre_patches.to(torch.float32),
                              post_spikes.to(torch.float32), ltp, ltd)
+
+
+def counter_fc_delta_ref(pre_spike: torch.Tensor, post_spike: torch.Tensor,
+                         pre_t: torch.Tensor, post_t: torch.Tensor,
+                         *,
+                         depth: int,
+                         window: str,
+                         a_plus: float,
+                         a_minus: float,
+                         tau_plus: float,
+                         tau_minus: float,
+                         lut: torch.Tensor | None = None) -> torch.Tensor:
+    """Reference semantics of the fc counter kernel: the per-lane raw delta
+    of :func:`counter_stdp_update_ref` (a zero ``w``, ``eta = 1``, no clip)
+    over ``(B, n)`` spikes and counters, summed over the B lanes in float64
+    and rounded once to the ``(n_pre, n_post)`` float32 delta."""
+    zero_w = torch.zeros((*pre_t.shape, post_t.shape[-1]), dtype=torch.float32,
+                         device=pre_t.device)
+    dw = counter_stdp_update_ref(zero_w, pre_spike, post_spike, pre_t, post_t, depth=depth,
+                                 window=window, a_plus=a_plus, a_minus=a_minus,
+                                 tau_plus=tau_plus, tau_minus=tau_minus, eta=1.0,
+                                 w_min=float("-inf"), w_max=float("inf"), lut=lut)
+    return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)

@@ -165,9 +165,9 @@ class UpdatePlan:
         backends hand the rule's :meth:`~repro_torch.plasticity.base.
         LearningRule.batch_delta` the batch as lanes, which for a rule with
         per-neuron magnitudes is that contraction in one conv-kernel launch
-        (the counter rules keep kernel 5's per-lane array and sum it); the
-        sparse backend makes one batched scatter and sums the ``(B, fan_in,
-        n_out)`` per-sample deltas.  Every per-sample term is an exact float32
+        (the counter rules' per-pair windows go to the counter fc kernel,
+        which sums the lanes in its registers); the sparse backend makes one
+        batched scatter and sums the ``(B, fan_in, n_out)`` per-sample deltas.  Every per-sample term is an exact float32
         value, so all sum in float64, exactly, and round once: the backends
         give the same bits.  The kernel view's shape picks the layout:
         ``(B·n,)`` words (packed history words, counter words at any depth)

@@ -127,9 +127,8 @@ class LearningRule(abc.ABC):
                     interpret: bool, po2: tuple[torch.Tensor, torch.Tensor],
                     table: torch.Tensor | None = None) -> torch.Tensor:
         """Raw ``(*lanes, n_pre, n_post)`` Δw from :meth:`kernel_view` views,
-        every lane in one kernel launch: the counter rules' fc layers sum it
-        over the batch (:meth:`batch_delta`); for the other rules it is the
-        per-sample reference the tests hold :meth:`batch_delta` against."""
+        every lane in one kernel launch: the per-sample reference the tests
+        hold :meth:`batch_delta` against."""
         raise NotImplementedError(f"rule {self.name!r} has no fused kernel")
 
     def patch_delta(self, pre_patches: torch.Tensor, post_spikes: torch.Tensor,

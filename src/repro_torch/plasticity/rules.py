@@ -28,7 +28,8 @@ from repro_torch.core import history as H
 from repro_torch.core.stdp import STDPParams, magnitudes_depth_major, pair_gate, po2_read
 from repro_torch.kernels.itp_counter.ops import (conv_counter_synapse_delta, counter_lut,
                                                  counter_synapse_delta,
-                                                 counter_weight_update)
+                                                 counter_weight_update,
+                                                 fc_counter_synapse_delta)
 from repro_torch.kernels.itp_counter.ref import counter_magnitudes
 from repro_torch.kernels.itp_sparse.ops import (sparse_conv_delta, sparse_synapse_delta,
                                                 sparse_weight_update)
@@ -37,7 +38,7 @@ from repro_torch.kernels.itp_stdp.ops import (synapse_delta, synapse_delta_packe
                                               weight_update_packed)
 from repro_torch.kernels.itp_stdp_conv.ops import (conv_synapse_delta,
                                                    conv_synapse_delta_packed)
-from repro_torch.plasticity.base import LearningRule, lane_sum, register_rule
+from repro_torch.plasticity.base import LearningRule, register_rule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,15 +264,17 @@ class CounterRule(LearningRule):
 
     def batch_delta(self, pre_spike, post_spike, pre_read, post_read, p: STDPParams,
                     *, packed, depth, pairing, compensate, interpret, po2, table=None):
-        """The fc delta per lane (kernel 5), then the exact batch sum: kernel
-        5 evaluates the window per synapse pair, the paper's baseline
+        """The fc delta summed over the batch in one counter fc kernel launch:
+        every pair of every lane evaluates both windows, the paper's baseline
         datapath that ITP's register read is compared with, so the counter
-        rules' fc layers keep the per-sample array rather than contract
-        per-neuron magnitudes."""
-        return lane_sum(self.fused_delta(pre_spike, post_spike, pre_read, post_read, p,
-                                         packed=packed, depth=depth, pairing=pairing,
-                                         compensate=compensate, interpret=interpret,
-                                         po2=po2, table=table))
+        rules' fc layers keep the per-pair windows rather than contract
+        per-neuron magnitudes; the kernel sums the lanes in float64 in its
+        registers, with no per-sample array."""
+        self.check_pairing(pairing)
+        del packed, compensate, po2
+        return fc_counter_synapse_delta(pre_spike, post_spike, pre_read, post_read, p,
+                                        depth=depth, window=self.window,
+                                        interpret=interpret, lut=table)
 
     def patch_delta(self, pre_patches, post_spikes, pre_read, post_read, p: STDPParams,
                     *, packed, depth, pairing, compensate, use_kernel, interpret, po2,

@@ -30,7 +30,8 @@ def expected_kernel_op(rule: str, backend: str, kind: str, packed: bool = True) 
     """The one kernel operator a step of the cell holds per learnable layer:
     the history rules' packed or bitplane update (kernels 1-2, the engine)
     or conv delta (kernels 3-4, the conv layers and the fc layers' batch
-    sum), the counter rules' (5-6), mstdp's on magnitude planes (2, 4); the
+    sum), the counter rules' (5, 6 and the fc delta's batch sum), mstdp's on
+    magnitude planes (2, 4); the
     sparse backend's conv delta runs kernel 4 on the gathered rows, its fc
     and engine updates no kernel; ``reference`` and ``fused_interpret``
     none."""
@@ -40,7 +41,8 @@ def expected_kernel_op(rule: str, backend: str, kind: str, packed: bool = True) 
     if backend != "fused":
         return None
     if rule in COUNTER_RULES:
-        return "repro_torch::counter_conv_delta" if conv else "repro_torch::counter_stdp_update"
+        return {"engine": "repro_torch::counter_stdp_update",
+                "fc": "repro_torch::counter_fc_delta"}.get(kind, "repro_torch::counter_conv_delta")
     base = ("repro_torch::itp_stdp_update" if kind == "engine"
             else "repro_torch::itp_stdp_conv_delta")
     return base + "_packed" if rule in HISTORY_RULES and packed else base
@@ -102,19 +104,19 @@ def test_float64_only_where_allowed_and_no_stale_entry(audit):
     assert used == {f"{f}:{fn}" for f, fn in FLOAT64_ALLOWLIST}
     assert all(reason.strip() for reason in FLOAT64_ALLOWLIST.values())
     # the kernel cells hold no float64 of their own: the conv kernels' scratch
-    # lives inside their operators, and the fc layers of every rule but the
-    # counter rules sum the batch inside the conv kernel
+    # lives inside their operators, and every rule's fc layer sums the batch
+    # inside its kernel (the conv kernel, or the counter rules' fc kernel)
     for c in audit["cells"]:
-        if c["backend"] == "fused" and (c["kind"] in ("engine", "conv2d", "conv1d")
-                                        or c["rule"] not in COUNTER_RULES):
+        if c["backend"] == "fused":
             assert not c["has_f64"], c
-    # the fc cells that keep a per-sample array hold some: the check has work to do
+    # the fc cells that keep a per-sample array (sparse, and the counter
+    # rules' plain version) hold some: the check has work to do
     assert any(c["has_f64"] for c in audit["cells"] if c["kind"] == "fc")
 
 
 def test_an_unlisted_float64_site_is_a_violation(monkeypatch):
     monkeypatch.delitem(FLOAT64_ALLOWLIST, ("plasticity/base.py", "lane_sum"))
-    cell = audit_cell("exact", "fused", "fc", device="cpu")
+    cell = audit_cell("itp", "sparse", "fc", device="cpu")
     assert any("plasticity/base.py:lane_sum" in v for v in cell["violations"])
 
 

@@ -6,11 +6,13 @@ rtol=1e-5 (float32 accumulation order over the M rows, the reference's own
 kernel-vs-oracle tolerance); packed ≡ unpacked in the port; one patch row
 equal to the dense kernel-1 delta; the plan's conv and fc deltas against
 the reference's on every backend; and the plan's fc delta against the
-per-lane path summed over the batch, with the rule hook each rule reaches."""
+per-lane path summed over the batch, with the rule hook each rule reaches
+(the counter rules' fc kernel wrapper's plain version and fake kernel too)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import repro.plasticity  # noqa: F401  (import order: breaks a cycle in repro.kernels)
 from repro.core import history as JH
@@ -21,11 +23,13 @@ from repro.plasticity import apply as JA
 from repro_torch.core import history as TH
 from repro_torch.core.stdp import STDPParams
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.itp_counter import kernel as NK
 from repro_torch.kernels.itp_stdp.ops import synapse_delta
 from repro_torch.kernels.itp_stdp_conv import kernel as TK
 from repro_torch.kernels.itp_stdp_conv import ops as TO
 from repro_torch.models import snn as TS
 from repro_torch.plasticity import apply as TA
+from repro_torch.plasticity import rules as TR
 
 CONV_TOL = dict(atol=1e-4, rtol=1e-5)
 
@@ -204,8 +208,8 @@ def test_plan_fc_delta_matches_reference(cell):
 
 # (rule, backend, config fields, the rule hook the plan's fc delta reaches,
 # bit for bit with the per-lane path): the history rules and mstdp contract
-# the batch in the conv kernel (patch_delta), the counter rules keep kernel
-# 5's per-lane array (fused_delta) and its exact batch sum
+# the batch in the conv kernel (patch_delta), the counter rules' per-pair
+# windows sum it in the counter fc kernel (fc_counter_synapse_delta)
 FC_ROUTES = [
     ("itp", "fused", {}, "patch_delta", True),
     ("itp", "fused_interpret", {}, "patch_delta", True),
@@ -216,20 +220,28 @@ FC_ROUTES = [
     ("itp_nocomp", "fused_interpret", {"depth": 12, "pairing": "all"}, "patch_delta", True),
     ("mstdp", "fused", {}, "patch_delta", False),
     ("mstdp", "fused_interpret", {}, "patch_delta", False),
-    ("exact", "fused", {}, "fused_delta", True),
-    ("exact", "fused_interpret", {}, "fused_delta", True),
+    ("exact", "fused", {}, "fc_counter_synapse_delta", True),
+    ("exact", "fused_interpret", {}, "fc_counter_synapse_delta", True),
+    ("linear", "fused", {}, "fc_counter_synapse_delta", True),
+    ("linear", "fused_interpret", {}, "fc_counter_synapse_delta", True),
+    ("imstdp", "fused", {}, "fc_counter_synapse_delta", True),
+    ("imstdp", "fused_interpret", {}, "fc_counter_synapse_delta", True),
+    ("exact", "fused", {"depth": 255}, "fc_counter_synapse_delta", False),
 ]
 
 
 @pytest.mark.parametrize("route", FC_ROUTES,
                          ids=lambda r: f"{r[0]}-{r[1]}-{'-'.join(map(str, r[2].values()))}")
 def test_plan_fc_delta_sums_the_per_lane_deltas(route, monkeypatch):
-    """The plan's fc delta against the per-lane path it replaced for the
-    history rules and mstdp: ``fused_delta`` over the batch lanes, summed in
-    float64 and rounded once.  Every per-sample term of a history rule is an
-    exact po2 sum, so the contraction gives the same bits; mstdp's
-    magnitudes may span more binades (within the reference test's
-    tolerance).  A spy on the rule's hooks shows which datapath ran."""
+    """The plan's fc delta against the per-lane path it replaced:
+    ``fused_delta`` over the batch lanes, summed in float64 and rounded once.
+    Every per-sample term of a history rule is an exact po2 sum, so the
+    contraction gives the same bits, as does a counter rule's window at depth
+    7; mstdp's magnitudes, and the exact window's at depth 255, may span more
+    binades (within the reference test's tolerance).  A spy on the rule's
+    hooks shows which datapath ran; a counter rule's fc kernel wrapper gives
+    the same delta on the CPU (its plain version), its fake kernel the
+    ``(n_in, n_out)`` float32 shape, and neither counts a launch."""
     rule_name, backend, extra, hook, bitwise = route
     B, n_in, n_out = 16, 40, 12
     cfg = TS.SNNConfig(name="t", input_shape=(n_in,),
@@ -274,6 +286,13 @@ def test_plan_fc_delta_sums_the_per_lane_deltas(route, monkeypatch):
             return _orig(self, *a, **kw)
 
         monkeypatch.setattr(type(rule), name, spy)
+    fc_counter = TR.fc_counter_synapse_delta
+
+    def fc_spy(*a, **kw):
+        calls.append("fc_counter_synapse_delta")
+        return fc_counter(*a, **kw)
+
+    monkeypatch.setattr(TR, "fc_counter_synapse_delta", fc_spy)
     got = plan.fc_delta(pre_st, post_st, s_in, s_out)
     assert calls == [hook]
     assert got.dtype == torch.float32 and got.shape == (n_in, n_out)
@@ -281,3 +300,14 @@ def test_plan_fc_delta_sums_the_per_lane_deltas(route, monkeypatch):
         assert torch.equal(got, want)
     else:
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    if hook == "fc_counter_synapse_delta":
+        p = plan.stdp
+        args = (s_in, s_out, pre_read, post_read, plan.table)
+        kw = dict(depth=plan.depth, window=rule.window, a_plus=p.a_plus, a_minus=p.a_minus,
+                  tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+        NK.counter_fc_delta.launches = 0
+        assert torch.equal(NK.counter_fc_delta(*args, **kw), got)
+        with FakeTensorMode() as mode:
+            fake = NK.counter_fc_delta(*(mode.from_tensor(t) for t in args), **kw)
+        assert fake.shape == (n_in, n_out) and fake.dtype == torch.float32
+        assert NK.counter_fc_delta.launches == 0    # the CUDA kernel alone counts

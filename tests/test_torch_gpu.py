@@ -633,12 +633,91 @@ def test_counter_kernels_count_launches_and_reject_bad_operands(cuda):
     assert (NK.counter_stdp_update.launches, NK.counter_conv_delta.launches) == (1, 1)
 
 
+@pytest.mark.parametrize("shape", ((256, 784, 6400), (16, 784, 100), (16, 600, 128)),
+                         ids=("snn6400-b256", "2layer-snn-fc-b16", "dcsnn-fc-b16"))
+@pytest.mark.parametrize("depth", (7, 255))
+@pytest.mark.parametrize("window", WINDOWS)
+def test_counter_fc_delta_sums_kernel5_lanes(cuda, shape, depth, window):
+    """The counter fc kernel against the per-lane path it replaced: kernel 5
+    on a zero ``w`` (eta 1, no clip) over the B lanes, summed in float64 and
+    rounded once.  Bit-equal at depth 7 (both sums exact); at depth 255 equal
+    run to run and within the conv tolerance.  One launch a call, no host
+    sync, and nothing allocated but the ``(n_pre, n_post)`` output, which the
+    caching allocator rounds up by at most 2 MiB (at the benchmark's B = 256
+    under 1 % of the per-lane array's bytes)."""
+    lanes, n_pre, n_post = shape
+    g = torch.Generator().manual_seed(lanes + depth)
+    pre_s = (torch.rand((lanes, n_pre), generator=g) < 0.2).float().to(cuda)
+    post_s = (torch.rand((lanes, n_post), generator=g) < 0.2).float().to(cuda)
+    pre_t = _counters((lanes, n_pre), depth, g).to(cuda)
+    post_t = _counters((lanes, n_post), depth, g).to(cuda)
+    lut = counter_lut(STDPParams(), depth, cuda)
+    kw = _counter_kw(depth, window)
+    lanes_dw = NK.counter_stdp_update(
+        torch.zeros(shape, device=cuda), pre_s, post_s, pre_t, post_t, lut, **kw, eta=1.0,
+        w_min=float("-inf"), w_max=float("inf"))
+    want = lanes_dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    del lanes_dw
+    args = (pre_s, post_s, pre_t, post_t, lut)
+    NK.counter_fc_delta(*args, **kw)                       # warm: build, load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    NK.counter_fc_delta.launches = NK.counter_stdp_update.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = NK.counter_fc_delta(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - before
+    again = NK.counter_fc_delta(*args, **kw)
+    assert NK.counter_fc_delta.launches == 2 and NK.counter_stdp_update.launches == 0
+    assert got.shape == (n_pre, n_post) and got.dtype == torch.float32
+    assert grown <= got.numel() * 4 + (2 << 20)   # the output in the allocator's blocks
+    if lanes == 256:
+        assert grown < 0.01 * lanes * n_pre * n_post * 4
+    assert want.abs().max() > 0 and torch.equal(got, again)
+    if depth == 7:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **CONV_TOL)
+
+
+def test_counter_fc_delta_is_one_kernel_launch_per_call(cuda):
+    """The profiler sees one counter fc kernel per wrapper call and no other
+    kernel, memset or copy; a batch of none gives zeros."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(9)
+    pre_s = (torch.rand((16, 784), generator=g) < 0.3).float().to(cuda)
+    post_s = (torch.rand((16, 100), generator=g) < 0.3).float().to(cuda)
+    words = [_counters(t.shape, 7, g).to(cuda) for t in (pre_s, post_s)]
+    lut = counter_lut(STDPParams(), 7, cuda)
+    calls = 10
+    for window in WINDOWS:
+        NK.counter_fc_delta(pre_s, post_s, *words, lut, **_counter_kw(7, window))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for window in WINDOWS:
+                NK.counter_fc_delta(pre_s, post_s, *words, lut, **_counter_kw(7, window))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 * calls
+    assert sum("counter_fc_delta_kernel" in n for n in names) == 3 * calls
+    empty = NK.counter_fc_delta(pre_s[:0], post_s[:0], words[0][:0], words[1][:0], lut,
+                                **_counter_kw(7, "exact"))
+    assert empty.shape == (784, 100) and not empty.any()
+
+
 @pytest.mark.parametrize("net,rule", (("6layer-dcsnn", "exact"), ("5layer-csnn", "linear"),
                                       ("2layer-snn", "imstdp")))
 def test_counter_net_on_card_fused_matches_reference(cuda, net, rule):
-    """Each layer launches its counter kernel once per step; fused and
-    reference runs agree on every spike, and on the weights within the
-    reference's net tolerance."""
+    """Each conv layer launches kernel 6 and the fc layer the counter fc
+    kernel once per step, and no layer kernel 5; fused and reference runs
+    agree on every spike, and on the weights within the reference's net
+    tolerance."""
     cfg = TS.PAPER_NETWORKS[net](rule, backend="fused", quantise=False)
     t_steps = 12
     g = torch.Generator().manual_seed(0)
@@ -649,12 +728,13 @@ def test_counter_net_on_card_fused_matches_reference(cuda, net, rule):
         run_cfg = dataclasses.replace(cfg, backend=backend)
         st = TS.init_snn(run_cfg, 4, generator=torch.Generator().manual_seed(1), device=cuda)
         NK.counter_conv_delta.launches = 0
-        NK.counter_stdp_update.launches = 0
+        NK.counter_stdp_update.launches = NK.counter_fc_delta.launches = 0
         runs[backend] = TS.run_snn(st, raster, run_cfg)
         if backend == "fused":
             conv = sum(spec.kind.startswith("conv") for spec in cfg.layers)
             assert NK.counter_conv_delta.launches == conv * t_steps
-            assert NK.counter_stdp_update.launches == t_steps
+            assert NK.counter_fc_delta.launches == t_steps
+            assert NK.counter_stdp_update.launches == 0
     (sf, cf), (sr, cr) = runs["fused"], runs["reference"]
     assert cf.sum() > 0 and torch.equal(cf, cr)
     for a, b in zip(sf.weights, sr.weights):
@@ -1426,6 +1506,11 @@ def _op_cases(device):
             lambda *a, **kw: NR.counter_conv_delta_ref(*a[:4], lut=a[4], **kw),
             (patches, out, words(300, 27, high=8), words(300, 6, high=8), lut),
             dict(win, window="exact"), CONV_TOL),
+        "counter_fc_delta": (
+            NK.counter_fc_delta,
+            lambda *a, **kw: NR.counter_fc_delta_ref(*a[:4], lut=a[4], **kw),
+            (pre, post, words(2, 40, high=8), words(2, 13, high=8), lut),
+            dict(win, window="exact"), CONV_TOL),
         "lif_update": (LK.lif_update, lif_update_ref, (v, i_in),
                        dict(alpha=0.9, e_rest=0.0, v_th=1.0), None),
         "llsmu_multiply": (MK.llsmu_multiply, llsmu_multiply_ref, tuple(ints),
@@ -1436,8 +1521,8 @@ def _op_cases(device):
 
 
 OP_NAMES = ("itp_stdp_update_packed", "itp_stdp_update", "itp_stdp_conv_delta_packed",
-            "itp_stdp_conv_delta", "counter_stdp_update", "counter_conv_delta", "lif_update",
-            "llsmu_multiply", "po2_encode", "po2_decode")
+            "itp_stdp_conv_delta", "counter_stdp_update", "counter_conv_delta",
+            "counter_fc_delta", "lif_update", "llsmu_multiply", "po2_encode", "po2_decode")
 
 
 @pytest.mark.parametrize("name", OP_NAMES)

@@ -1,4 +1,4 @@
-"""The port's ten kernels as registered torch operators (``kernels/_ops.py``):
+"""The port's eleven kernels as registered torch operators (``kernels/_ops.py``):
 each ``torch.ops.repro_torch.<name>`` has a CPU kernel (the plain version), a
 CUDA kernel (the launch) and a fake kernel, and no composite or default
 kernel that could run the plain version on CUDA tensors.  On the CPU each
@@ -86,6 +86,10 @@ def _cases():
             lambda *args, **kw: counter_ref.counter_conv_delta_ref(*args[:4], lut=args[4],
                                                                    **kw),
             (patches, out, *conv_counters, lut), dict(WINDOW, window="imstdp")),
+        "counter_fc_delta": (
+            counter_kernel.counter_fc_delta,
+            lambda *args, **kw: counter_ref.counter_fc_delta_ref(*args[:4], lut=args[4], **kw),
+            (pre, post, *counters, lut), dict(WINDOW, window="linear")),
         "lif_update": (lif_kernel.lif_update, lif_ref.lif_update_ref, (v, i_in),
                        dict(alpha=0.9, e_rest=0.0, v_th=1.0)),
         "llsmu_multiply": (llsmu_kernel.llsmu_multiply, llsmu_ref.llsmu_multiply_ref, (a, b),
@@ -115,7 +119,8 @@ def _equal(a, b):
 
 
 def test_ten_ops_in_one_namespace():
-    assert len(NAMES) == 10
+    """The ten ported kernels and the counter fc delta."""
+    assert len(NAMES) == 11
     assert _defined() == sorted(f"repro_torch::{n}" for n in NAMES)
 
 

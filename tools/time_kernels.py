@@ -15,7 +15,13 @@ the four conv layers of ``chip_smoke.CONV_CASES``, depth 7, held against
 their plain versions within the conv tolerance and timed likewise; kernels 3
 and 4 also at the fc layers' shapes (``FC_CASES``: chip_smoke's batch-16
 layers and ``chip_smoke.FC_CASES``, the benchmark's 256 × 784 × 6,400 and
-2,048 × 600 × 128), where they sum the batch of the SNN fc delta.
+2,048 × 600 × 128), where they sum the batch of the SNN fc delta.  Then the
+counter rules' fc delta (``counter_fc_delta``, each window) at
+``chip_smoke.COUNTER_SUM_CASES`` (the dense shapes and the benchmark's
+256 × 784 × 6,400), held against its plain version within the conv tolerance
+and timed likewise, beside the per-lane path it replaced (a zero ``w``
+through kernel 5, summed over the lanes in float64; CUDA events), which a
+version without the fc delta times alone.
 
 Then the side kernels, 7 (``lif_update``), 8 (``llsmu_multiply``, on
 element pairs and, where the version has it, with one ``b`` for every
@@ -88,7 +94,8 @@ FC_CASES = {**{k: v for k, v in S.COUNTER_FC_CASES.items() if k.endswith(" fc")}
 # steps (itp packed and unpacked, exact) or 1 batch (imstdp, mstdp, itp on
 # sparse); the CSNN 1 batch (itp packed and unpacked, linear); the 2layer-snn
 # protocol 6 epochs x 8 batches x 30 steps (itp, exact, mstdp).  mstdp runs
-# kernels 2 and 4; the history rules' and mstdp's fc layers kernels 3 and 4;
+# kernels 2 and 4; the history rules' and mstdp's fc layers kernels 3 and 4,
+# the counter rules' the fc delta;
 # the sparse DCSNN kernel 4 on its gathered (uncapped: all M) rows and no fc
 # kernel
 _DCSNN, _CSNN, _CONV = {"DCSNN fc": 90}, {"CSNN fc": 30}, {
@@ -96,9 +103,10 @@ _DCSNN, _CSNN, _CONV = {"DCSNN fc": 90}, {"CSNN fc": 30}, {
 LAUNCHES = {
     "itp_stdp_update_packed": {"serving": 64},
     "itp_stdp_update": {"serving": 128},
-    "counter_stdp_update[exact]": {"serving": 64, "2layer-snn fc": 1440, **_DCSNN},
-    "counter_stdp_update[linear]": dict(_CSNN),
-    "counter_stdp_update[imstdp]": {"DCSNN fc": 30},
+    "counter_stdp_update[exact]": {"serving": 64},
+    "counter_fc_delta[exact]": {"2layer-snn fc": 1440, **_DCSNN},
+    "counter_fc_delta[linear]": dict(_CSNN),
+    "counter_fc_delta[imstdp]": {"DCSNN fc": 30},
     "itp_stdp_conv_delta_packed": {**_CONV, "2layer-snn fc": 1440, **_DCSNN, **_CSNN},
     "itp_stdp_conv_delta": {**_CONV, "DCSNN conv1": 150, "DCSNN conv2": 150,
                             "2layer-snn fc": 1440, "DCSNN fc": 120, **_CSNN},
@@ -246,8 +254,9 @@ def _host_cases(device):
 
 
 def _update_host_cases(device):
-    """Kernels 1-6 at their main shapes (1, 2, 5 at serving's 8 × 784 × 100;
-    3, 4, 6 at DCSNN conv1): name → call."""
+    """Kernels 1-6 and the counter fc delta at their main shapes (1, 2, 5 at
+    serving's 8 × 784 × 100; 3, 4, 6 at DCSNN conv1; the fc delta at the
+    2layer-snn fc's 16 × 784 × 100, where the version has it): name → call."""
     import torch
 
     from repro_torch.core.history import pack_bitplanes
@@ -275,6 +284,11 @@ def _update_host_cases(device):
     words_pre, words_post = pack_bitplanes(planes_pre), pack_bitplanes(planes_post)
     conv_t = [torch.randint(0, DEPTH + 1, shape, generator=gen).to(torch.uint8).to(device)
               for shape in ((m, k), (m, c))]
+    b, f_pre, f_post = SHAPES["2layer-snn fc"]
+    fc_args = [(torch.rand((b, n), generator=gen) < 0.2).float().to(device)
+               for n in (f_pre, f_post)]
+    fc_args += [torch.randint(0, DEPTH + 1, (b, n), generator=gen).to(torch.uint8).to(device)
+                for n in (f_pre, f_post)]
     kw = dict(nearest=True, eta=1.0 / 16.0, w_min=0.0, w_max=1.0)
     calls = {
         "itp_stdp_update_packed": lambda: K.itp_stdp_update_packed(
@@ -295,6 +309,9 @@ def _update_host_cases(device):
                                                    **wkw))
         calls[f"counter_conv_delta[{window}]"] = (
             lambda wkw=wkw: NK.counter_conv_delta(patches, out, *conv_t, lut, **wkw))
+        if hasattr(NK, "counter_fc_delta"):
+            calls[f"counter_fc_delta[{window}]"] = (
+                lambda wkw=wkw: NK.counter_fc_delta(*fc_args, lut, **wkw))
     return calls
 
 
@@ -476,6 +493,42 @@ def main() -> int:
                   f"events {ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
             results.append(dict(name=name, case=case, shape=[m, k, c], device_ms=device_ms,
                                 ms=ms, bound_ms=bound_ms))
+    for case, (lanes, n_pre, n_post) in ({} if args.side else S.COUNTER_SUM_CASES).items():
+        gen = torch.Generator().manual_seed(lanes + n_pre + n_post)
+        pre_s, post_s = ((torch.rand((lanes, n), generator=gen) < 0.2).float().to(device)
+                         for n in (n_pre, n_post))
+        pre_t, post_t = (torch.randint(0, DEPTH + 1, (lanes, n), generator=gen)
+                         .to(torch.uint8).to(device) for n in (n_pre, n_post))
+        args_fc = (pre_s, post_s, pre_t, post_t, lut)
+        for window in S.COUNTER_WINDOWS:
+            ckw = dict(depth=DEPTH, window=window, a_plus=p.a_plus, a_minus=p.a_minus,
+                       tau_plus=p.tau_plus, tau_minus=p.tau_minus)
+            bound_ms, bound_by = S._conv_bound(lanes, n_pre, n_post, DEPTH, True, window)
+
+            def lanes_path(ckw=ckw):
+                zero = torch.zeros((lanes, n_pre, n_post), device=device)
+                dw = NK.counter_stdp_update(zero, *args_fc, eta=1.0, w_min=-float("inf"),
+                                            w_max=float("inf"), **ckw)
+                return dw.sum(dim=0, dtype=torch.float64).to(torch.float32)
+
+            timed = [(f"counter_fc_lanes[{window}]", lanes_path, None)]
+            if hasattr(NK, "counter_fc_delta"):
+                kern = (lambda ckw=ckw: NK.counter_fc_delta(*args_fc, **ckw))
+                out, ref = kern(), NR.counter_fc_delta_ref(*args_fc[:4], lut=lut, **ckw)
+                torch.cuda.synchronize()
+                if not torch.allclose(out, ref, **S.CONV_TOL):
+                    raise SystemExit(f"counter_fc_delta[{window}] at {case}: kernel != "
+                                     f"plain version")
+                timed.append((f"counter_fc_delta[{window}]", kern, "counter_fc_delta_kernel"))
+            for name, kern, kernel_name in timed:
+                ms = S._time_ms(kern, reps=10, inner=5)
+                device_ms = None if kernel_name is None else S._device_ms(kern, kernel_name)
+                dev = "not measured" if device_ms is None else f"{device_ms:.5f}"
+                print(f"[{label}] {name} {case} {lanes}x{n_pre}x{n_post} depth={DEPTH}: "
+                      f"device {dev} ms, events {ms:.5f} ms, bound {bound_ms:.5f} ms "
+                      f"({bound_by})", flush=True)
+                results.append(dict(name=name, case=case, shape=[lanes, n_pre, n_post],
+                                    device_ms=device_ms, ms=ms, bound_ms=bound_ms))
     for name, cases in _side_cases(device).items():
         for case, shape, kern, count in cases:
             bound_ms, bound_by = S._side_bound(name, count)
